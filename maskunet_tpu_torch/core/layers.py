@@ -1,4 +1,4 @@
-"""Layers of the eval forward as plain functions on tensors.
+"""Layers of the forward as plain functions on tensors.
 
 Counterpart of maskunet_tpu/core/layers.py. Feature maps are NHWC at every
 public function, as in the JAX package; a convolution runs on the NCHW view
@@ -11,7 +11,9 @@ upsample is two interpolation matmuls in the compute dtype, rounded to it
 between the two. Where JAX multiplies a bf16 array by a Python float, the
 float is first rounded to bf16 (weak typing): `weak_scalar` reproduces that.
 
-Train-mode BatchNorm, dropout and the int8 conv belong to later slices.
+Train-mode BatchNorm follows JAX's arithmetic (f32, var = E[x^2] - mean^2)
+in plain ops rather than `F.batch_norm`, whose variance is computed another
+way. The int8 conv belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -60,6 +62,29 @@ def batchnorm(weight: torch.Tensor, bias: torch.Tensor,
     """Eval-mode BatchNorm over the last (channel) axis, in f32."""
     inv = torch.rsqrt(var + eps) * weight
     return ((x.float() - mean) * inv + bias).to(x.dtype)
+
+
+def batchnorm_train(weight: torch.Tensor, bias: torch.Tensor,
+                    running_mean: torch.Tensor, running_var: torch.Tensor,
+                    x: torch.Tensor, *, momentum: float = 0.1,
+                    eps: float = 1e-5
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Train-mode BatchNorm over (N, H, W) per channel, torch semantics, as
+    JAX's `batchnorm(train=True)`: normalise with the biased batch variance
+    E[x^2] - mean^2 in f32, fold the unbiased variance into the running
+    stats with momentum 0.1. Returns (y in x's dtype, new running mean, new
+    running var); the running stats carry no gradient."""
+    xf = x.float()
+    dims = tuple(range(x.dim() - 1))
+    mean = xf.mean(dim=dims)
+    var = xf.square().mean(dim=dims) - mean.square()
+    n = x.numel() // x.shape[-1]
+    with torch.no_grad():
+        unbiased = var * (n / max(n - 1, 1))
+        new_mean = (1 - momentum) * running_mean + momentum * mean
+        new_var = (1 - momentum) * running_var + momentum * unbiased
+    inv = torch.rsqrt(var + eps) * weight
+    return ((xf - mean) * inv + bias).to(x.dtype), new_mean, new_var
 
 
 def layernorm(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
@@ -112,3 +137,25 @@ def upsample_2x_bilinear(x: torch.Tensor) -> torch.Tensor:
     mw = torch.from_numpy(_interp_matrix_np(w, 2 * w)).to(x.device, x.dtype)
     y = torch.einsum("oh,bhwc->bowc", mh, x)
     return torch.einsum("pw,bowc->bopc", mw, y)
+
+
+def dropout(x: torch.Tensor, *, rate: float,
+            generator: torch.Generator | None, train: bool,
+            keep_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Inverted dropout, `where(keep, x / (1 - rate), 0)` in x's dtype, with
+    1 - rate rounded to that dtype first (JAX weak typing: 0.69921875 for
+    rate 0.3 in bf16). `keep_mask` (True = keep) replaces the draw from
+    `generator`."""
+    if not train or rate == 0.0:
+        return x
+    keep = (dropout_keep_mask(generator, rate, x.shape) if keep_mask is None
+            else keep_mask)
+    return torch.where(keep, x / weak_scalar(1.0 - rate, x.dtype), 0)
+
+
+def dropout_keep_mask(generator: torch.Generator, rate: float,
+                      shape) -> torch.Tensor:
+    """Boolean keep mask for `dropout` (True = keep, probability 1 - rate),
+    drawn on `generator`'s device."""
+    return torch.rand(shape, generator=generator,
+                      device=generator.device) >= rate

@@ -1,9 +1,12 @@
 // Masked attention forward without an online max, for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel `_fwd_kernel_nomax` with `with_lse=False`
-// (maskunet_tpu/ops/flash_attention.py:164-218, launched at :247-261), the
-// only kernel on the serving path (every `flash_mha` primal). Per (batch,
-// query row):
+// Replaces the Pallas TPU kernel `_fwd_kernel_nomax` (maskunet_tpu/ops/
+// flash_attention.py:164-218) in both its launches: `with_lse=False`
+// (:247-261, every `flash_mha` primal: serving and the eval step) through
+// the entry point `flash_fwd_nomax`, and `with_lse=True` (:267-284, the
+// training forward of `flash_mha`'s custom VJP) through
+// `flash_fwd_nomax_lse`, which also writes lse2 = log2(max(l, 1e-30)) per
+// query row for the backward kernel (flash_bwd.cu). Per (batch, query row):
 //
 //   s2 = (q * qmul) . k^T              qmul = scale*log2e, q*qmul rounded to
 //                                      q's dtype (JAX weak typing)
@@ -34,7 +37,8 @@
 //     and get p = 0), so any length works.
 //
 // No TMA or wgmma yet: those come with the kernel's tuning.
-// Entry point: `flash_fwd_nomax` below (plain C, bound with ctypes).
+// Entry points: `flash_fwd_nomax` and `flash_fwd_nomax_lse` below (plain C,
+// bound with ctypes). The lse output costs one f32 store per query row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -141,7 +145,7 @@ fwd_nomax_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
                const float* __restrict__ bias, __nv_bfloat16* __restrict__ o,
-               int lq, int lk, float qmul) {
+               float* __restrict__ lse, int lq, int lk, float qmul) {
   using T = Bf16Tile<C, BK, WARPS>;
   constexpr int S = T::S, KV = T::KV, C8 = C / 8, NT = 32 * WARPS;
   static_assert(BK % 16 == 0 && BK <= NT && C % 16 == 0, "tile shape");
@@ -289,6 +293,11 @@ fwd_nomax_bf16(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<uint32_t*>(ob + size_t(gr1) * C + col) =
           pack_bf16(acc[n][2] / d1, acc[n][3] / d1);
   }
+  if (lse != nullptr && t == 0) {  // lse2 = log2(max(l, 1e-30)), NaN kept
+    float* lb = lse + size_t(b) * lq;
+    if (gr0 < lq) lb[gr0] = log2f(d0);
+    if (gr1 < lq) lb[gr1] = log2f(d1);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -312,7 +321,8 @@ template <int C, bool USE_VALID>
 __global__ void __launch_bounds__(256)
 fwd_nomax_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ bias,
-              float* __restrict__ o, int lq, int lk, float qmul) {
+              float* __restrict__ o, float* __restrict__ lse, int lq, int lk,
+              float qmul) {
   using T = F32Tile<C>;
   constexpr int QS = T::QS, PS = T::PS, C4 = C / 4;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -403,6 +413,7 @@ fwd_nomax_f32(const float* __restrict__ q, const float* __restrict__ k,
     float* orow = o + (size_t(b) * lq + gr) * C + part;
 #pragma unroll
     for (int i = 0; i < C4; ++i) orow[4 * i] = acc[i] / d;
+    if (lse != nullptr && part == 0) lse[size_t(b) * lq + gr] = log2f(d);
   }
 }
 
@@ -430,22 +441,22 @@ cudaError_t allow_smem(Kernel kernel, size_t smem,
 template <typename Kernel, typename Elem>
 cudaError_t launch(Kernel kernel, std::atomic<uint32_t>& set_on, int rows,
                    int threads, size_t smem, const void* q, const void* k,
-                   const void* v, const void* bias, void* o, int b, int lq,
-                   int lk, float qmul, cudaStream_t stream) {
+                   const void* v, const void* bias, void* o, float* lse,
+                   int b, int lq, int lk, float qmul, cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, smem, set_on);
   if (err != cudaSuccess) return err;
   dim3 grid((lq + rows - 1) / rows, b);
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const Elem*>(q), static_cast<const Elem*>(k),
       static_cast<const Elem*>(v), static_cast<const float*>(bias),
-      static_cast<Elem*>(o), lq, lk, qmul);
+      static_cast<Elem*>(o), lse, lq, lk, qmul);
   return cudaGetLastError();
 }
 
 template <int C, bool UV>
 cudaError_t run(bool bf16, const void* q, const void* k, const void* v,
-                const void* bias, void* o, int b, int lq, int lk, float qmul,
-                cudaStream_t stream) {
+                const void* bias, void* o, float* lse, int b, int lq, int lk,
+                float qmul, cudaStream_t stream) {
   if (bf16) {
     // 128 f32 accumulators a thread at C = 256: halve the key tile there.
     // At C = 64 a block takes 128 queries, which halves the K/V reads
@@ -456,21 +467,36 @@ cudaError_t run(bool bf16, const void* q, const void* k, const void* v,
     static std::atomic<uint32_t> bf16_set_on{0};
     return launch<decltype(&fwd_nomax_bf16<C, BK, WARPS, UV>), __nv_bfloat16>(
         &fwd_nomax_bf16<C, BK, WARPS, UV>, bf16_set_on, T::BQ, 32 * WARPS,
-        T::smem, q, k, v, bias, o, b, lq, lk, qmul, stream);
+        T::smem, q, k, v, bias, o, lse, b, lq, lk, qmul, stream);
   }
   static std::atomic<uint32_t> f32_set_on{0};
   return launch<decltype(&fwd_nomax_f32<C, UV>), float>(
       &fwd_nomax_f32<C, UV>, f32_set_on, kBQ, 256, F32Tile<C>::smem, q, k, v,
-      bias, o, b, lq, lk, qmul, stream);
+      bias, o, lse, b, lq, lk, qmul, stream);
 }
 
 template <int C>
 cudaError_t run_c(bool bf16, bool use_valid, const void* q, const void* k,
-                  const void* v, const void* bias, void* o, int b, int lq,
-                  int lk, float qmul, cudaStream_t stream) {
-  return use_valid
-             ? run<C, true>(bf16, q, k, v, bias, o, b, lq, lk, qmul, stream)
-             : run<C, false>(bf16, q, k, v, bias, o, b, lq, lk, qmul, stream);
+                  const void* v, const void* bias, void* o, float* lse, int b,
+                  int lq, int lk, float qmul, cudaStream_t stream) {
+  return use_valid ? run<C, true>(bf16, q, k, v, bias, o, lse, b, lq, lk,
+                                  qmul, stream)
+                   : run<C, false>(bf16, q, k, v, bias, o, lse, b, lq, lk,
+                                   qmul, stream);
+}
+
+int dispatch(const void* q, const void* k, const void* v, const void* bias,
+             void* o, float* lse, int b, int lq, int lk, int c, int is_bf16,
+             int use_valid, float qmul, void* stream) {
+  if (b <= 0 || lq <= 0) return int(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool bf16 = is_bf16 != 0, uv = use_valid != 0;
+  switch (c) {
+    case 64: return int(run_c<64>(bf16, uv, q, k, v, bias, o, lse, b, lq, lk, qmul, st));
+    case 128: return int(run_c<128>(bf16, uv, q, k, v, bias, o, lse, b, lq, lk, qmul, st));
+    case 256: return int(run_c<256>(bf16, uv, q, k, v, bias, o, lse, b, lq, lk, qmul, st));
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -482,13 +508,17 @@ extern "C" int flash_fwd_nomax(const void* q, const void* k, const void* v,
                                const void* bias, void* o, int b, int lq,
                                int lk, int c, int is_bf16, int use_valid,
                                float qmul, void* stream) {
-  if (b <= 0 || lq <= 0) return int(cudaSuccess);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool bf16 = is_bf16 != 0, uv = use_valid != 0;
-  switch (c) {
-    case 64: return int(run_c<64>(bf16, uv, q, k, v, bias, o, b, lq, lk, qmul, st));
-    case 128: return int(run_c<128>(bf16, uv, q, k, v, bias, o, b, lq, lk, qmul, st));
-    case 256: return int(run_c<256>(bf16, uv, q, k, v, bias, o, b, lq, lk, qmul, st));
-    default: return int(cudaErrorInvalidValue);
-  }
+  return dispatch(q, k, v, bias, o, nullptr, b, lq, lk, c, is_bf16,
+                  use_valid, qmul, stream);
+}
+
+// As `flash_fwd_nomax`, and lse: [B, 1, Lq] f32, log2(max(l, 1e-30)) of
+// each query row (the row sum l of the unnormalised p).
+extern "C" int flash_fwd_nomax_lse(const void* q, const void* k,
+                                   const void* v, const void* bias, void* o,
+                                   void* lse, int b, int lq, int lk, int c,
+                                   int is_bf16, int use_valid, float qmul,
+                                   void* stream) {
+  return dispatch(q, k, v, bias, o, static_cast<float*>(lse), b, lq, lk, c,
+                  is_bf16, use_valid, qmul, stream);
 }

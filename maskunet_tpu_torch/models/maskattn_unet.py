@@ -1,4 +1,4 @@
-"""MaskAttn-UNet, eval forward, as plain functions over flat state dicts.
+"""MaskAttn-UNet as plain functions over flat state dicts.
 
 Counterpart of maskunet_tpu/models/maskattn_unet.py (same topology; the
 docstring there draws it). Parameters live in two flat dicts keyed by the
@@ -11,9 +11,11 @@ reference's own state_dict names (ade_semantic.py:192-314), so that
 - `state`: BatchNorm `running_mean`/`running_var`.
 
 Feature maps are NHWC. The attention layers always take the flash path
-(`attn_impl` 'auto' resolves to 'flash'): the kernel on the card, its plain
-version on the CPU. Training (train-mode BN, dropout, the backward kernel),
-remat, meshes and int8 serving belong to later slices and raise here.
+(`attn_impl` 'auto' resolves to 'flash'): the kernels on the card, their
+plain versions on the CPU. `train=True` runs batch-statistics BatchNorm
+(returning the new running stats), dropout at the two decoder sites and,
+under autograd, the flash backward. Meshes and int8 serving belong to
+later slices and raise here.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from maskunet_tpu_torch.core import initializers as init_lib
 from maskunet_tpu_torch.core import layers
@@ -186,63 +189,89 @@ def _conv(p: dict, name: str, x: torch.Tensor) -> torch.Tensor:
     return layers.conv2d(p[f"{name}.weight"], p.get(f"{name}.bias"), x)
 
 
-def _bn(p: dict, s: dict, name: str, x: torch.Tensor) -> torch.Tensor:
-    return layers.batchnorm(p[f"{name}.weight"], p[f"{name}.bias"],
-                            s[f"{name}.running_mean"],
-                            s[f"{name}.running_var"], x)
+class _BatchNorms:
+    """The forward's BatchNorms: eval (running stats), train (batch stats;
+    the new running stats are collected in `new_state`) or folded (the
+    identity: the affines live in the convs)."""
+
+    def __init__(self, params: dict, state: dict | None, *, train: bool,
+                 folded: bool):
+        self.params, self.state = params, state
+        self.train, self.folded = train, folded
+        self.new_state: dict[str, torch.Tensor] = {}
+
+    def __call__(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        if self.folded:
+            return x
+        p, s = self.params, self.state
+        args = (p[f"{name}.weight"], p[f"{name}.bias"],
+                s[f"{name}.running_mean"], s[f"{name}.running_var"], x)
+        if not self.train:
+            return layers.batchnorm(*args)
+        y, mean, var = layers.batchnorm_train(*args)
+        self.new_state[f"{name}.running_mean"] = mean
+        self.new_state[f"{name}.running_var"] = var
+        return y
+
+    def result(self) -> dict:
+        """The state `encode`/`decode` return: the new running stats in
+        train, the state itself in eval, nothing when folded."""
+        if self.folded:
+            return {}
+        return self.new_state if self.train else self.state
 
 
-def _convblock(p, s, prefix, x, *, residual, folded):
-    h = _conv(p, f"{prefix}.0", x)
-    if not folded:
-        h = _bn(p, s, f"{prefix}.1", h)
+def _convblock(p, bn, prefix, x, *, residual):
+    h = bn(f"{prefix}.1", _conv(p, f"{prefix}.0", x))
     h = layers.gelu(h)
-    h = _conv(p, f"{prefix}.3", h)
-    if not folded:
-        h = _bn(p, s, f"{prefix}.4", h)
+    h = bn(f"{prefix}.4", _conv(p, f"{prefix}.3", h))
     return layers.gelu(x + h) if residual else h
 
 
-def _down(p, s, i, x, *, folded):
+def _down(p, bn, i, x):
     x = layers.max_pool_2x(x)
     pre = f"downsample{i}.maxpool_conv"
-    x = _convblock(p, s, f"{pre}.1.conv_block", x, residual=True,
-                   folded=folded)
-    x = _convblock(p, s, f"{pre}.2.conv_block", x, residual=False,
-                   folded=folded)
-    return x if folded else _bn(p, s, f"{pre}.3", x)
+    x = _convblock(p, bn, f"{pre}.1.conv_block", x, residual=True)
+    x = _convblock(p, bn, f"{pre}.2.conv_block", x, residual=False)
+    return bn(f"{pre}.3", x)
 
 
-def _up(p, s, i, x, skip, *, folded):
+def _up(p, bn, i, x, skip):
     x = layers.upsample_2x_bilinear(x)
     x = torch.cat([skip, x], dim=-1)      # [skip, x] order, ref :253
     pre = f"upsample{i}.conv"
-    x = _convblock(p, s, f"{pre}.0.conv_block", x, residual=True,
-                   folded=folded)
-    x = _convblock(p, s, f"{pre}.1.conv_block", x, residual=False,
-                   folded=folded)
-    return x if folded else _bn(p, s, f"{pre}.2", x)
+    x = _convblock(p, bn, f"{pre}.0.conv_block", x, residual=True)
+    x = _convblock(p, bn, f"{pre}.1.conv_block", x, residual=False)
+    return bn(f"{pre}.2", x)
 
 
 _ATTN_KEYS = ("query.weight", "query.bias", "key.weight", "key.bias",
               "value.weight", "value.bias", "norm.weight", "norm.bias")
 
 
-def _attn(params, i, x, masks, plans, cfg):
+def _attn(params, i, x, masks, plans, cfg, train):
+    """Attention block i; with `remat_attention` in training it is
+    recomputed in the backward (non-reentrant checkpoint) instead of
+    keeping its activations."""
     p = {k: params[f"self_attention{i}.{k}"] for k in _ATTN_KEYS}
-    return attention.spatial_attention(
-        p, x, masks[i - 1], impl=cfg.resolve_attn_impl(),
-        plan=plans[i - 1], output_layout=cfg.attn_output_layout)
+
+    def fn(p_, x_, mask, plan):
+        return attention.spatial_attention(
+            p_, x_, mask, impl=cfg.resolve_attn_impl(), plan=plan,
+            output_layout=cfg.attn_output_layout)
+
+    if cfg.remat_attention and train:
+        return torch.utils.checkpoint.checkpoint(
+            fn, p, x, masks[i - 1], plans[i - 1], use_reentrant=False)
+    return fn(p, x, masks[i - 1], plans[i - 1])
 
 
-def _check_eval(cfg: MaskAttnUNetConfig, train: bool, mesh) -> None:
-    if train:
-        raise NotImplementedError("train=True: training slice")
-    if cfg.remat_attention:
-        raise NotImplementedError("remat_attention: training slice")
+def _check(train: bool, mesh, folded: bool) -> None:
     if mesh is not None:
         raise NotImplementedError("mesh / tensor parallelism: parallel "
                                   "slice")
+    if folded and train:
+        raise ValueError("folded params are eval-only")
 
 
 def encode(params: dict, state: dict | None, x: torch.Tensor, *,
@@ -251,48 +280,60 @@ def encode(params: dict, state: dict | None, x: torch.Tensor, *,
            train: bool = False, mesh=None, folded: bool = False,
            mask_plans: tuple | None = None):
     """Encoder: initial block, down1-3 with attn1-3, bottleneck. Returns
-    ((x1, x2, x3, x4), new_state)."""
-    _check_eval(cfg, train, mesh)
+    ((x1, x2, x3, x4), new_state): in train the encoder's new running
+    stats."""
+    _check(train, mesh, folded)
     masks = masks if masks is not None else (None,) * 6
     plans = mask_plans if mask_plans is not None else (None,) * 6
+    bn = _BatchNorms(params, state, train=train, folded=folded)
     x = x.to(cfg.dtype)
-    x1 = _convblock(params, state, "initial_conv.conv_block", x,
-                    residual=False, folded=folded)
-    x2 = _attn(params, 1, _down(params, state, 1, x1, folded=folded),
-               masks, plans, cfg)
-    x3 = _attn(params, 2, _down(params, state, 2, x2, folded=folded),
-               masks, plans, cfg)
-    x4 = _attn(params, 3, _down(params, state, 3, x3, folded=folded),
-               masks, plans, cfg)
+    x1 = _convblock(params, bn, "initial_conv.conv_block", x, residual=False)
+    x2 = _attn(params, 1, _down(params, bn, 1, x1), masks, plans, cfg, train)
+    x3 = _attn(params, 2, _down(params, bn, 2, x2), masks, plans, cfg, train)
+    x4 = _attn(params, 3, _down(params, bn, 3, x3), masks, plans, cfg, train)
     for i in (1, 2, 3):
-        x4 = _convblock(params, state, f"bottom{i}.conv_block", x4,
-                        residual=False, folded=folded)
-    return (x1, x2, x3, x4), ({} if folded else state)
+        x4 = _convblock(params, bn, f"bottom{i}.conv_block", x4,
+                        residual=False)
+    return (x1, x2, x3, x4), bn.result()
 
 
 def decode(params: dict, state: dict | None, skips, *,
            cfg: MaskAttnUNetConfig,
            masks: tuple[torch.Tensor, ...] | None = None,
-           train: bool = False, mesh=None, folded: bool = False,
-           mask_plans: tuple | None = None) -> tuple[ModelOutput, dict]:
-    """Decoder: up1-3 with attn4-6, joint final LayerNorm, heads (ReLU on
-    the logits, as the reference). Dropout is the identity in eval."""
-    _check_eval(cfg, train, mesh)
+           train: bool = False,
+           dropout_generator: torch.Generator | None = None,
+           mesh=None, folded: bool = False,
+           mask_plans: tuple | None = None,
+           dropout_masks: tuple | None = None) -> tuple[ModelOutput, dict]:
+    """Decoder: up1-3 with attn4-6, dropout after up1 and up2 (train
+    only), joint final LayerNorm, heads (ReLU on the logits, as the
+    reference). Dropout draws its keep masks from `dropout_generator`, or
+    takes them from `dropout_masks` (shapes `decoder_dropout_shapes`)."""
+    _check(train, mesh, folded)
     masks = masks if masks is not None else (None,) * 6
     plans = mask_plans if mask_plans is not None else (None,) * 6
+    keep = dropout_masks if dropout_masks is not None else (None, None)
+    if (train and cfg.dropout_rate > 0 and dropout_masks is None
+            and dropout_generator is None):
+        raise ValueError("dropout_generator required when train=True")
+    bn = _BatchNorms(params, state, train=train, folded=folded)
     x1, x2, x3, x4 = skips
-    h = _attn(params, 4, _up(params, state, 1, x4, x3, folded=folded),
-              masks, plans, cfg)
-    h = _attn(params, 5, _up(params, state, 2, h, x2, folded=folded),
-              masks, plans, cfg)
-    h = _attn(params, 6, _up(params, state, 3, h, x1, folded=folded),
-              masks, plans, cfg)
+
+    def drop(h, i):
+        return layers.dropout(h, rate=cfg.dropout_rate,
+                              generator=dropout_generator, train=train,
+                              keep_mask=keep[i])
+
+    h = drop(_up(params, bn, 1, x4, x3), 0)
+    h = _attn(params, 4, h, masks, plans, cfg, train)
+    h = drop(_up(params, bn, 2, h, x2), 1)
+    h = _attn(params, 5, h, masks, plans, cfg, train)
+    h = _attn(params, 6, _up(params, bn, 3, h, x1), masks, plans, cfg, train)
     h = layers.layernorm(params["norm.weight"].permute(1, 2, 0),
                          params["norm.bias"].permute(1, 2, 0), h)
 
     def head(name, x):
-        y = _conv(params, f"{name}.0", x)
-        return y if folded else _bn(params, state, f"{name}.1", y)
+        return bn(f"{name}.1", _conv(params, f"{name}.0", x))
 
     sem = torch.relu(head("final_layer", h))
     boundary = embeddings = None
@@ -301,23 +342,37 @@ def decode(params: dict, state: dict | None, skips, *,
     if cfg.with_boundary_head:
         b = torch.relu(head("boundary_head", sem))
         boundary = _conv(params, "boundary_head.3", b)
-    return (ModelOutput(sem, boundary, embeddings),
-            {} if folded else state)
+    return ModelOutput(sem, boundary, embeddings), bn.result()
+
+
+def decoder_dropout_shapes(cfg: MaskAttnUNetConfig,
+                           batch: int) -> tuple[tuple, tuple]:
+    """Shapes of the two decoder dropout sites (after up1 and up2), for
+    `decode(..., dropout_masks=...)`."""
+    n = cfg.img_size
+    return ((batch, n // 4, n // 4, 128), (batch, n // 2, n // 2, 64))
 
 
 def apply(params: dict, state: dict | None, x: torch.Tensor, *,
           cfg: MaskAttnUNetConfig,
           masks: tuple[torch.Tensor, ...] | None = None,
-          train: bool = False, mesh=None, folded: bool = False,
+          train: bool = False,
+          dropout_generator: torch.Generator | None = None,
+          mesh=None, folded: bool = False,
           mask_plans: tuple | None = None) -> tuple[ModelOutput, dict]:
-    """Eval forward. x: [B, H, W, c_in] NHWC. `masks`: per-layer key masks
+    """Forward. x: [B, H, W, c_in] NHWC. `masks`: per-layer key masks
     (None: all keys visible); `mask_plans`: `precompute_mask_plans(masks)`;
     `folded`: `params` came from `fold_bn_for_inference` (state unused).
-    Returns (output, state)."""
-    skips, _ = encode(params, state, x, cfg=cfg, masks=masks, train=train,
-                      mesh=mesh, folded=folded, mask_plans=mask_plans)
-    return decode(params, state, skips, cfg=cfg, masks=masks, train=train,
-                  mesh=mesh, folded=folded, mask_plans=mask_plans)
+    `train`: batch-statistics BatchNorm and dropout (keep masks drawn from
+    `dropout_generator`). Returns (output, state): in train the new
+    running stats of every BatchNorm, in eval `state` itself."""
+    skips, enc_state = encode(params, state, x, cfg=cfg, masks=masks,
+                              train=train, mesh=mesh, folded=folded,
+                              mask_plans=mask_plans)
+    out, dec_state = decode(params, state, skips, cfg=cfg, masks=masks,
+                            train=train, dropout_generator=dropout_generator,
+                            mesh=mesh, folded=folded, mask_plans=mask_plans)
+    return out, ({**enc_state, **dec_state} if train else dec_state)
 
 
 # ---------------------------------------------------------------------------

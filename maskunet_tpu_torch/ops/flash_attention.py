@@ -1,4 +1,4 @@
-"""Flash masked attention: the glue around the no-max forward kernel.
+"""Flash masked attention: the glue around the flash kernels.
 
 Counterpart of maskunet_tpu/ops/flash_attention.py. The key mask enters as
 an additive f32 bias [B, 1, Lk] in {0, NEG_INF}. Layers with at least
@@ -7,8 +7,10 @@ an additive f32 bias [B, 1, Lk] in {0, NEG_INF}. Layers with at least
 halves the kernel's work; a row with more visible keys than slots, or with
 none, is NaN-poisoned so a wrong answer is loud.
 
-`flash_mha` is forward only in this slice: its backward kernel comes with
-training.
+`flash_mha` mirrors the JAX custom VJP (flash_attention.py:446-474): with
+no gradient to take it runs K1 (`flash_fwd_nomax`); under autograd it runs
+`_FlashMHA`, whose forward is K2 (`flash_fwd_nomax_lse`) and whose backward
+is K4 (`flash_bwd`).
 """
 
 from __future__ import annotations
@@ -26,16 +28,41 @@ _NOMAX_CLAMP = flash_kernels._NOMAX_CLAMP
 COMPACT_MIN_TOKENS = 4096
 
 
+class _FlashMHA(torch.autograd.Function):
+    """`flash_mha` under autograd: K2 forward saving (q, k, v, bias, o,
+    lse), K4 backward. The bias gets no gradient, as in JAX (:471)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale, use_valid):
+        o, lse = flash_kernels.flash_fwd_nomax_lse(q, k, v, bias, scale,
+                                                   use_valid)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ctx.scale, ctx.use_valid = scale, use_valid
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_kernels.flash_bwd(q, k, v, bias, o, lse,
+                                             do.contiguous(), ctx.scale,
+                                             ctx.use_valid)
+        return dq, dk, dv, None, None, None
+
+
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               bias: torch.Tensor, scale: float,
               use_valid: bool = True) -> torch.Tensor:
     """softmax(q k^T * scale + bias) v per batch row, through the no-max
-    kernel. `use_valid=False` skips the explicit masked-key zeroing, which
+    kernels. `use_valid=False` skips the explicit masked-key zeroing, which
     is exact only when every row has a visible key (the compacted path
-    guarantees it)."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v, bias)):
-        raise NotImplementedError("backward kernel: training slice")
+    guarantees it). Differentiable in q, k and v; not in the bias."""
+    if torch.is_grad_enabled():
+        if bias.requires_grad:
+            raise ValueError("flash_mha gives the bias no gradient (as JAX's "
+                             "custom VJP); pass a bias that does not "
+                             "require grad")
+        if q.requires_grad or k.requires_grad or v.requires_grad:
+            return _FlashMHA.apply(q, k, v, bias, scale, use_valid)
     return flash_kernels.flash_fwd_nomax(q, k, v, bias, scale, use_valid)
 
 

@@ -1,16 +1,22 @@
-"""The no-max flash-attention forward: CUDA kernel, its build, and its plain
-PyTorch version.
+"""The flash-attention kernels: CUDA sources, their build, their wrappers
+and their plain PyTorch versions.
 
-`flash_fwd_nomax` is the port of the Pallas TPU kernel `_fwd_kernel_nomax`
-with `with_lse=False` (maskunet_tpu/ops/flash_attention.py:164-218), the
-primal of `flash_mha`. Its CUDA source, `csrc/flash_fwd_nomax.cu`, is
-compiled for sm_90a with nvcc on first use into `maskunet_tpu_torch/_build/`
-(a shared library with a plain C entry point, loaded with ctypes) and
-launched on the current CUDA stream.
+- `flash_fwd_nomax` (K1): the Pallas TPU kernel `_fwd_kernel_nomax` with
+  `with_lse=False` (maskunet_tpu/ops/flash_attention.py:164-218), the
+  primal of `flash_mha`.
+- `flash_fwd_nomax_lse` (K2): the same kernel with `with_lse=True`, the
+  training forward, which also returns lse2 = log2(max(l, 1e-30)).
+- `flash_bwd` (K4): the merged backward `_bwd_kernel` (:323-389).
 
-A tensor on the CPU goes to `flash_fwd_nomax_reference`, the same math in
-plain PyTorch; a CUDA tensor always launches the kernel (or raises). The
-wrapper counts its launches in `flash_fwd_nomax.launches`.
+Their CUDA sources, `csrc/flash_fwd_nomax.cu` (K1 and K2) and
+`csrc/flash_bwd.cu` (K4), are compiled for sm_90a with nvcc at the first
+launch of any of them, both at once, into `maskunet_tpu_torch/_build/`
+(shared libraries with plain C entry points, loaded with ctypes), and
+launch on the current CUDA stream.
+
+A tensor on the CPU goes to the wrapper's plain version (`*_reference`,
+the same math in plain PyTorch); a CUDA tensor always launches the kernel
+(or raises). Each wrapper counts its launches in `<wrapper>.launches`.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ _NOMAX_CLAMP = 60.0
 KERNEL_CHANNELS = (64, 128, 256)
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "flash_fwd_nomax.cu"
+SOURCES = {"flash_fwd_nomax": _PKG / "csrc" / "flash_fwd_nomax.cu",
+           "flash_bwd": _PKG / "csrc" / "flash_bwd.cu"}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,27 +49,69 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 def flash_fwd_nomax_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, bias: torch.Tensor,
-                              scale: float,
-                              use_valid: bool = True) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: q [B,Lq,C], k/v [B,Lk,C] (bf16
-    or f32), bias [B,1,Lk] f32 in {0, NEG_INF}; returns [B,Lq,C] in q's
-    dtype. Follows the TPU kernel's arithmetic: q*scale*log2e rounded to
-    q's dtype (the constant too, as JAX's weak typing does), f32 scores,
-    a NaN-propagating clamp at 2^60, p rounded to v's dtype for P.V while
-    the row sum uses the f32 p. Loops over the batch to bound the
-    [Lq, Lk] temporaries."""
+                              scale: float, use_valid: bool = True,
+                              with_lse: bool = False):
+    """Plain PyTorch version of K1 (and, `with_lse`, K2): q [B,Lq,C], k/v
+    [B,Lk,C] (bf16 or f32), bias [B,1,Lk] f32 in {0, NEG_INF}; returns o
+    [B,Lq,C] in q's dtype, and with `with_lse` (o, lse [B,1,Lq] f32).
+    Follows the TPU kernel's arithmetic: q*scale*log2e rounded to q's dtype
+    (the constant too, as JAX's weak typing does), f32 scores, a
+    NaN-propagating clamp at 2^60, p rounded to v's dtype for P.V while the
+    row sum l uses the f32 p; lse = log2(max(l, 1e-30)), NaN kept. Loops
+    over the batch to bound the [Lq, Lk] temporaries."""
     qs = q * weak_scalar(scale * _LOG2E, q.dtype)
     valid = bias > NEG_INF * 0.5
     out = torch.empty_like(q)
+    lse = torch.empty(q.shape[0], 1, q.shape[1], device=q.device)
     for i in range(q.shape[0]):
         s = torch.matmul(qs[i].float(), k[i].float().transpose(0, 1))
         p = torch.exp2(torch.clamp(s + bias[i], max=_NOMAX_CLAMP))
         if use_valid:
             p = p * valid[i]
-        l = p.sum(dim=-1, keepdim=True)
+        l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
         acc = torch.matmul(p.to(v.dtype).float(), v[i].float())
-        out[i] = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
-    return out
+        out[i] = (acc / l).to(q.dtype)
+        lse[i, 0] = torch.log2(l[:, 0])
+    return (out, lse) if with_lse else out
+
+
+def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = sum_c dO * O in f32, [B, 1, Lq] (JAX computes it in XLA
+    before the backward kernel, flash_attention.py:397-398)."""
+    return (do.float() * o.float()).sum(dim=-1)[:, None, :]
+
+
+def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, scale: float,
+                        use_valid: bool = True):
+    """Plain PyTorch version of K4: the gradients (dq, dk, dv) of the
+    attention `flash_fwd_nomax_lse` computed, in q's, k's and v's dtypes.
+    Follows the TPU kernel step by step: s = (q*scale*log2e rounded to q's
+    dtype) k^T + bias in f32, a NaN-propagating min(s, 60), p = exp2(s -
+    lse) [* valid]; dv = p(in dO's dtype)^T dO; ds = p (dO v^T - delta);
+    ds rounded to q's dtype; dk = scale ds^T q and dq = scale ds k with the
+    raw q and k, in f32. Loops over the batch to bound the [Lq, Lk]
+    temporaries."""
+    qs = q * weak_scalar(scale * _LOG2E, q.dtype)
+    valid = bias > NEG_INF * 0.5
+    delta = _delta(o, do)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    for i in range(q.shape[0]):
+        s = torch.matmul(qs[i].float(), k[i].float().transpose(0, 1))
+        s = torch.clamp(s + bias[i], max=_NOMAX_CLAMP)
+        p = torch.exp2(s - lse[i].transpose(0, 1))
+        if use_valid:
+            p = p * valid[i]
+        dof = do[i].float()
+        dv[i] = torch.matmul(p.to(do.dtype).float().transpose(0, 1),
+                             dof).to(v.dtype)
+        dp = torch.matmul(dof, v[i].float().transpose(0, 1))
+        ds = (p * (dp - delta[i].transpose(0, 1))).to(q.dtype).float()
+        dk[i] = (torch.matmul(ds.transpose(0, 1), q[i].float())
+                 * scale).to(k.dtype)
+        dq[i] = (torch.matmul(ds, k[i].float()) * scale).to(q.dtype)
+    return dq, dk, dv
 
 
 def _nvcc() -> str:
@@ -71,44 +120,96 @@ def _nvcc() -> str:
                               "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the flash kernel is built from "
-                       f"{SOURCE} on a machine with the CUDA toolkit")
+    raise RuntimeError("nvcc not found: the flash kernels are built from "
+                       f"{_PKG / 'csrc'} on a machine with the CUDA toolkit")
 
 
-def build() -> dict:
-    """Compile the kernel library if this source has not been built yet.
-    Returns {"path", "seconds", "cached", "log"}; `log` holds ptxas's
-    register and shared-memory report of a fresh build."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libflash_fwd_nomax_{digest}.so"
-    log = lib.with_suffix(".log")
-    if lib.exists():
-        return {"path": str(lib), "seconds": 0.0, "cached": True,
-                "log": log.read_text() if log.exists() else ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    t0 = time.monotonic()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    seconds = time.monotonic() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return {"path": str(lib), "seconds": seconds, "cached": False,
-            "log": proc.stdout + proc.stderr}
+def build() -> dict[str, dict]:
+    """Compile every kernel library whose source has not been built yet,
+    one nvcc process for each, all started together. Returns {name:
+    {"path", "seconds", "cached", "log"}}; `log` holds ptxas's register,
+    shared-memory and spill report of a fresh build."""
+    out: dict[str, dict] = {}
+    running = {}
+    for name, source in SOURCES.items():
+        digest = hashlib.sha256(source.read_bytes() + " ".join(
+            NVCC_FLAGS).encode()).hexdigest()[:16]
+        lib = BUILD_DIR / f"lib{name}_{digest}.so"
+        log = lib.with_suffix(".log")
+        if lib.exists():
+            out[name] = {"path": str(lib), "seconds": 0.0, "cached": True,
+                         "log": log.read_text() if log.exists() else ""}
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, time.monotonic(), source, lib, tmp)
+    failed = []
+    for name, (proc, t0, source, lib, tmp) in running.items():
+        text = proc.communicate()[0]
+        seconds = time.monotonic() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) on {source}:\n"
+                          f"{text}")
+            continue
+        lib.with_suffix(".log").write_text(text)
+        os.replace(tmp, lib)
+        out[name] = {"path": str(lib), "seconds": seconds, "cached": False,
+                     "log": text}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build()["path"])
-    fn = lib.flash_fwd_nomax
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_void_p])
+_ptr, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# entry point -> (library, argument types); every entry returns a CUDA error
+_ENTRIES = {
+    "flash_fwd_nomax": ("flash_fwd_nomax",
+                        [_ptr] * 5 + [_int] * 6 + [_float, _ptr]),
+    "flash_fwd_nomax_lse": ("flash_fwd_nomax",
+                            [_ptr] * 6 + [_int] * 6 + [_float, _ptr]),
+    "flash_bwd": ("flash_bwd", [_ptr] * 10 + [_int] * 6 + [_float] * 2
+                  + [_ptr]),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    """The C entry point `name`, from its library (built on first use)."""
+    lib_name, argtypes = _ENTRIES[name]
+    fn = getattr(ctypes.CDLL(build()[lib_name]["path"]), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):
+        err = _entry(name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _on_card(q: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (the plain version); any other device raises."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash kernel for device {q.device}")
+    return True
+
+
+def _check_layout(name: str, t: torch.Tensor, device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, q on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        # the kernels read rows with 16-byte vector loads and cp.async
+        raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def _check(q, k, v, bias) -> None:
@@ -129,39 +230,90 @@ def _check(q, k, v, bias) -> None:
     if c not in KERNEL_CHANNELS:
         raise ValueError(f"channels {c} not in {KERNEL_CHANNELS}")
     for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            # the kernel reads rows with 16-byte vector loads and cp.async
-            raise ValueError(f"{name} must start on a 16-byte boundary")
+        _check_layout(name, t, q.device)
 
 
 def flash_fwd_nomax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor, scale: float,
                     use_valid: bool = True) -> torch.Tensor:
-    """Masked attention forward without online max (see module docstring).
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
-    if q.device.type == "cpu":
+    """K1: masked attention forward without online max (see the module
+    docstring). CPU tensors run the plain version; CUDA tensors launch the
+    kernel."""
+    if not _on_card(q):
         return flash_fwd_nomax_reference(q, k, v, bias, scale, use_valid)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash kernel for device {q.device}")
     _check(q, k, v, bias)
     b, lq, c = q.shape
     o = torch.empty_like(q)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        err = lib.flash_fwd_nomax(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            o.data_ptr(), b, lq, k.shape[1], c,
-            int(q.dtype == torch.bfloat16), int(use_valid),
-            weak_scalar(scale * _LOG2E, q.dtype),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd_nomax launch failed: CUDA error {err}")
+    _launch("flash_fwd_nomax", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), bias.data_ptr(), o.data_ptr(), b, lq, k.shape[1],
+            c, int(q.dtype == torch.bfloat16), int(use_valid),
+            weak_scalar(scale * _LOG2E, q.dtype))
     flash_fwd_nomax.launches += 1
     return o
 
 
 flash_fwd_nomax.launches = 0
+
+
+def flash_fwd_nomax_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: torch.Tensor, scale: float,
+                        use_valid: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2: K1 that also returns lse [B, 1, Lq] f32, the base-2 log of each
+    query row's sum for the backward. CPU tensors run the plain version;
+    CUDA tensors launch the kernel."""
+    if not _on_card(q):
+        return flash_fwd_nomax_reference(q, k, v, bias, scale, use_valid,
+                                         with_lse=True)
+    _check(q, k, v, bias)
+    b, lq, c = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(b, 1, lq, device=q.device)
+    _launch("flash_fwd_nomax_lse", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), bias.data_ptr(), o.data_ptr(), lse.data_ptr(), b,
+            lq, k.shape[1], c, int(q.dtype == torch.bfloat16),
+            int(use_valid), weak_scalar(scale * _LOG2E, q.dtype))
+    flash_fwd_nomax_lse.launches += 1
+    return o, lse
+
+
+flash_fwd_nomax_lse.launches = 0
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+              do: torch.Tensor, scale: float, use_valid: bool = True
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4: the merged backward of `flash_fwd_nomax_lse` (o, lse its
+    outputs, do the gradient of o); returns (dq, dk, dv) in q's, k's and
+    v's dtypes. delta = sum(do * o) is computed here with torch ops, as
+    JAX does in XLA. dq accumulates in f32 with atomics in the kernel, so
+    its last bits vary from run to run. CPU tensors run the plain version;
+    CUDA tensors launch the kernel."""
+    if not _on_card(q):
+        return flash_bwd_reference(q, k, v, bias, o, lse, do, scale,
+                                   use_valid)
+    _check(q, k, v, bias)
+    b, lq, c = q.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} must be {q.dtype} {tuple(q.shape)}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        _check_layout(name, t, q.device)
+    if tuple(lse.shape) != (b, 1, lq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be f32 [{b}, 1, {lq}], got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    _check_layout("lse", lse, q.device)
+    delta = _delta(o, do)
+    dq = torch.zeros(b, lq, c, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            bias.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, lq, k.shape[1], c,
+            int(q.dtype == torch.bfloat16), int(use_valid),
+            weak_scalar(scale * _LOG2E, q.dtype), float(scale))
+    flash_bwd.launches += 1
+    return dq.to(q.dtype), dk, dv
+
+
+flash_bwd.launches = 0

@@ -31,6 +31,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from maskunet_tpu_torch.core.device import exact_f32, resolve_device
 from maskunet_tpu_torch.models import maskattn_unet as mu
 from maskunet_tpu_torch.tasks import recipes as recipes_lib
 
@@ -181,17 +182,6 @@ def _to_numpy(preds) -> np.ndarray:
     return np.asarray(preds)
 
 
-def resolve_device(device: str | torch.device) -> torch.device:
-    """The serving device; a CUDA request without a card raises (there is
-    no silent fall back to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but CUDA is not available; pass "
-            "device='cpu' to run on the CPU")
-    return dev
-
-
 def model_config(recipe: recipes_lib.Recipe, num_classes: int, *,
                  attn_impl: str = "auto",
                  compute_dtype: str = "float32") -> mu.MaskAttnUNetConfig:
@@ -233,9 +223,7 @@ def build_inference_fn(recipe, num_classes: int, workdir: str | None = None,
     if isinstance(recipe, str):
         recipe = recipes_lib.get(recipe)
     dev = resolve_device(device)
-    # f32 means f32 on the card: cuDNN convs default to TF32 otherwise
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    exact_f32()
     cfg = model_config(recipe, num_classes, attn_impl=attn_impl,
                        compute_dtype=compute_dtype)
     if workdir is not None:

@@ -3,24 +3,15 @@
 This package's own copy of maskunet_tpu/tasks/recipes.py (which cannot be
 imported: it pulls in the JAX train step for `TaskConfig`). The table must
 stay equal to the JAX one field for field; a test holds it there.
-`TaskConfig` carries the loss blend of `train/step.py` as data only: the
-training slice gives it behaviour.
+`TaskConfig`, the loss blend, lives in `train/step.py`, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-
-@dataclasses.dataclass(frozen=True)
-class TaskConfig:
-    ce_weight: float = 1.0
-    triplet_weight: float = 0.0
-    triplet_features: str = "logits"      # 'logits' | 'embeddings'
-    ignore_index: int | None = None       # CE ignore (255 for cityscapes)
-    triplet_ignore_label: int | None = None
-    triplet_samples: int = 32
-    mask_policy: str = "cached"           # 'cached' | 'fresh'
+from maskunet_tpu_torch.train.step import TaskConfig
 
 
 @dataclasses.dataclass(frozen=True)

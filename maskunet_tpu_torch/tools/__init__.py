@@ -1,0 +1,1 @@
+"""See maskunet_tpu_torch/__init__.py."""

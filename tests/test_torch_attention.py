@@ -171,13 +171,20 @@ def test_flash_mha_clamp_at_60():
 
 
 def test_flash_mha_forward_only():
+    """With no gradient to take, flash_mha runs K1's forward only (no
+    autograd node); under autograd it runs `_FlashMHA` (K2 forward, K4
+    backward), which computes the same forward."""
     q = torch.randn(1, 16, 64, requires_grad=True)
     k, v = torch.randn(1, 16, 64), torch.randn(1, 16, 64)
     bias = torch.zeros(1, 1, 16)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.flash_mha(q, k, v, bias, 1.0)
     with torch.no_grad():
-        assert tfa.flash_mha(q, k, v, bias, 1.0).shape == (1, 16, 64)
+        out = tfa.flash_mha(q, k, v, bias, 1.0)
+    assert out.shape == (1, 16, 64) and out.grad_fn is None
+    out_grad = tfa.flash_mha(q, k, v, bias, 1.0)
+    assert type(out_grad.grad_fn).__name__ == "_FlashMHABackward"
+    assert torch.equal(out_grad.detach(), out)
+    out_grad.sum().backward()
+    assert q.grad.shape == q.shape and k.grad is None
 
 
 def test_masked_attention_flash_compacted(monkeypatch):

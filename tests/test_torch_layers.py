@@ -159,3 +159,56 @@ def test_initializers_bounds():
     a = ti.torch_uniform(torch.Generator().manual_seed(3), (5,), 4)
     b = ti.torch_uniform(torch.Generator().manual_seed(3), (5,), 4)
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 4, 6), (1, 2, 2, 3)])
+def test_batchnorm_train_and_running_stats(rng, shape):
+    """Batch statistics, biased variance to normalise, unbiased variance
+    into the running stats (momentum 0.1), all in f32: 1e-5."""
+    x = _np(rng, *shape) * 3.0 + 1.0
+    c = shape[-1]
+    scale, offset, mean = _np(rng, c), _np(rng, c), _np(rng, c)
+    var = rng.uniform(0.5, 2.0, c).astype(np.float32)
+    want, new = jl.batchnorm({"scale": scale, "offset": offset},
+                             {"mean": mean, "var": var}, jnp.asarray(x),
+                             train=True)
+    got, new_mean, new_var = tl.batchnorm_train(
+        *(torch.from_numpy(a) for a in (scale, offset, mean, var, x)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    np.testing.assert_allclose(new_mean.numpy(), np.asarray(new["mean"]),
+                               **F32)
+    np.testing.assert_allclose(new_var.numpy(), np.asarray(new["var"]),
+                               **F32)
+    assert not new_mean.requires_grad and not new_var.requires_grad
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dropout_with_injected_keep_mask_equals_jax(rng, dtype):
+    """The same keep mask gives the same output, bit for bit; in bf16 the
+    divisor 1 - 0.3 is rounded to bf16 first (0.69921875), as JAX's weak
+    typing does."""
+    x = _np(rng, 2, 4, 4, 8)
+    keep = rng.random(x.shape) >= 0.3
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    want = jl.dropout(jnp.asarray(x).astype(jdt), rate=0.3, rng=None,
+                      train=True, keep_mask=jnp.asarray(keep))
+    got = tl.dropout(torch.from_numpy(x).to(tdt), rate=0.3, generator=None,
+                     train=True, keep_mask=torch.from_numpy(keep))
+    assert got.dtype == tdt
+    np.testing.assert_array_equal(
+        got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+    assert tl.dropout(torch.from_numpy(x), rate=0.3, generator=None,
+                      train=False) is not None
+
+
+def test_dropout_keep_mask_draw():
+    g = torch.Generator().manual_seed(0)
+    keep = tl.dropout_keep_mask(g, 0.3, (4, 64, 64))
+    assert keep.dtype == torch.bool and 0.68 < keep.float().mean() < 0.72
+    x = torch.ones(4, 64, 64)
+    assert torch.equal(tl.dropout(x, rate=0.3, generator=None, train=False),
+                       x)
+    y = tl.dropout(x, rate=0.3, generator=torch.Generator().manual_seed(0),
+                   train=True)
+    assert torch.equal(y != 0, keep)

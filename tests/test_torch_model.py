@@ -182,15 +182,20 @@ def test_bf16_folded_cast_matches_jax(golden_setup):
 
 
 def test_later_slices_raise():
+    """Meshes and int8 serving still raise; train mode (with or without
+    remat) now runs and returns the new running stats of every BN."""
     cfg = tmu.MaskAttnUNetConfig(c_out=4, img_size=16)
     params, state = tmu.init(torch.Generator().manual_seed(0), cfg)
     x = torch.zeros(1, 16, 16, 3)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="dropout_generator"):
         tmu.apply(params, state, x, cfg=cfg, train=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tmu.apply(params, state, x,
-                  cfg=tmu.MaskAttnUNetConfig(c_out=4, img_size=16,
-                                             remat_attention=True))
+    for remat in (False, True):
+        _, new_state = tmu.apply(
+            params, state, x, train=True,
+            cfg=tmu.MaskAttnUNetConfig(c_out=4, img_size=16,
+                                       remat_attention=remat),
+            dropout_generator=torch.Generator().manual_seed(0))
+        assert set(new_state) == set(state)
     with pytest.raises(NotImplementedError, match="parallel slice"):
         tmu.apply(params, state, x, cfg=cfg, mesh=object())
     with pytest.raises(NotImplementedError):
