@@ -36,6 +36,25 @@ final result):
 7. train times: ms per step and img/s, a device profile of 3 steps, and per
    attention shape K2 and K4 against their plain versions, their bounds and
    the library's forward and backward.
+8. kernel_online, kernel_bwd_noclamp: K3 `flash_fwd_online` (o and lse)
+   and K4 with `clamp=False` on K3's lse against their plain versions at
+   the same shapes and cases, both dtypes, plus a fully-masked row without
+   use_valid (K3 gives the mean of V) and exact scores far past the clamp
+   at 60 (where K4 clamped and unclamped must differ).
+9. safe_serving, safe_train: the same serving and training paths with the
+   safe softmax on (`flash_attention._SAFE_SOFTMAX`, what
+   MASKUNET_SAFE_SOFTMAX=1 sets): a forward launches K3 6 times and K1
+   never; a training step launches K3 6 and K4 6 times (all unclamped),
+   K1 and K2 never; an eval step K3 6 times; logits and gradients against
+   the plain versions as in 4 and 6; 10 steps lower the loss; wall and
+   device times of both.
+10. online_time: K3 per attention shape against its plain version, its
+    bound and the library.
+11. tools: the A/B tools' K5 `softmax_ab.old_flash_fwd`, K6
+    `softmax_ab.nomax65_fwd` (clamped and not) and K7
+    `bf16_softmax_experiment.flash_fwd_bf16` against their plain versions
+    at the tools' attn6 inputs, the three tool mains (the kernels' main
+    path), then each kernel's time, plain time, bound and library time.
 
 It imports torch, numpy and the port, nothing of JAX.
 """
@@ -45,6 +64,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -60,6 +80,8 @@ from maskunet_tpu_torch.models import maskattn_unet as mu
 from maskunet_tpu_torch.ops import flash_attention as fa
 from maskunet_tpu_torch.ops import flash_kernels as fk
 from maskunet_tpu_torch.tasks import recipes
+from maskunet_tpu_torch.tools import bf16_softmax_experiment as bf16_tool
+from maskunet_tpu_torch.tools import softmax_ab
 from maskunet_tpu_torch.train import loop as train_loop
 from maskunet_tpu_torch.train import step as train_step
 
@@ -92,6 +114,7 @@ RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 # 1.98 GHz boost.
 PEAK = {"bytes": 3.35e12, torch.bfloat16: 989e12, torch.float32: 67e12,
         "exp2": 16 * 132 * 1.98e9}
+C65 = 65                     # K6's contraction: 64 channels and the bias
 SERVE_LOGIT_TOL = 0.05       # x max|logit|, bf16 model, kernel vs plain
 SERVE_ARGMAX_AGREE = 0.98
 # Gradients of one step through the kernels vs through their plain
@@ -322,7 +345,109 @@ def phase_kernel_bwd() -> dict:
     return {"max_abs_err": worst}
 
 
-def phase_serving(card: str) -> dict:
+def above_clamp_inputs(gen, c, dtype):
+    """Base-2 scores far past the clamp at 60 (up to ~100) on batch row 0's
+    first 8 queries, computed exactly: integer q and k in [-4, 4] (x 6 on
+    those rows) and scale = 1 / (8 log2 e), so q's multiplier is 1/8 and
+    every score is a multiple of 1/64, the same in any summation order.
+    Random scores that large carry ~1e-4 of f32 summation noise into
+    exp2(s - lse), past the f32 bound. Returns (q, k, v, bias, scale)."""
+    q = torch.randint(-4, 5, (2, 200, c), generator=gen, device="cuda")
+    q[0, :8] *= 6
+    k = torch.randint(-4, 5, (2, 150, c), generator=gen, device="cuda")
+    v = torch.randn(2, 150, c, generator=gen, device="cuda")
+    mask = torch.rand(2, 150, generator=gen, device="cuda") < 0.5
+    return (q.to(dtype), k.to(dtype), v.to(dtype),
+            fa.mask_to_bias(mask, 2, 150), 0.125 / fk._LOG2E)
+
+
+def online_cases(gen, dtype):
+    """(name, q, k, v, bias, use_valid, row1, scale) of K3 and of K4
+    without its clamp: `kernel_cases` at scale 1, a fully-masked batch row
+    1 without use_valid (row1 'masked_mean': K3 gives the mean of V), and
+    exact scores past the clamp at C 64 and 256 (row1 'above_clamp')."""
+    for case in kernel_cases(gen, dtype):
+        yield (*case, 1.0)
+        if case[-1] == "masked":
+            yield ("fully_masked_row_no_valid", *case[1:5], False,
+                   "masked_mean", 1.0)
+    for c in (64, 256):
+        q, k, v, bias, scale = above_clamp_inputs(gen, c, dtype)
+        yield f"above_clamp_c{c}", q, k, v, bias, True, "above_clamp", scale
+
+
+def phase_kernel_online() -> dict:
+    """K3 (o and lse) vs its plain version; a fully-masked row has lse
+    -1e30 and o 0 (use_valid) or the mean of V (not); returns the worst
+    error."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = 0.0
+    neg = float(torch.tensor(fa.NEG_INF))
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, q, k, v, bias, uv, row1, scale in online_cases(gen, dtype):
+            o, lse = fk.flash_fwd_online(q, k, v, bias, scale, uv)
+            torch.cuda.synchronize()
+            want_o, want_lse = fk.flash_fwd_online_reference(
+                q, k, v, bias, scale, uv)
+            outs = {"o": agreement(o, want_o), "lse": agreement(lse, want_lse)}
+            if row1 in ("masked", "masked_mean"):
+                mean_v = v[1].float().mean(0).expand(q.shape[1], -1)
+                outs["o"]["expected"] = bool((lse[1] == neg).all()) and (
+                    row1_as_expected(o, "masked") if uv
+                    else agreement(o[1], mean_v.to(dtype))["ok"])
+            elif row1 == "above_clamp":
+                outs["lse"]["expected"] = float(lse.max()) > fk._NOMAX_CLAMP
+            else:
+                outs["o"]["expected"] = row1_as_expected(o, row1)
+            worst = max(worst, emit_case("kernel_online", name, q, k, uv,
+                                         outs))
+    return {"max_abs_err": worst}
+
+
+def phase_kernel_bwd_noclamp() -> dict:
+    """K4 with clamp=False vs its plain version on K3's plain o and lse;
+    where scores pass the clamp, the clamped kernel must give another dQ.
+    Returns the worst error."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, q, k, v, bias, uv, row1, scale in online_cases(gen, dtype):
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+            o, lse = fk.flash_fwd_online_reference(q, k, v, bias, scale, uv)
+            got = fk.flash_bwd(q, k, v, bias, o, lse, do, scale, uv,
+                               clamp=False)
+            torch.cuda.synchronize()
+            want = fk.flash_bwd_reference(q, k, v, bias, o, lse, do, scale,
+                                          uv, clamp=False)
+            outs = {n: agreement(g, w)
+                    for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+            if row1 == "above_clamp":
+                clamped = fk.flash_bwd(q, k, v, bias, o, lse, do, scale, uv)
+                outs["dq"]["expected"] = bool(
+                    all(torch.isfinite(g).all() for g in got)
+                    and not torch.allclose(clamped[0].float(),
+                                           got[0].float()))
+            elif row1 == "nan":
+                outs["dq"]["expected"] = row1_as_expected(got[0], row1)
+                outs["dk"]["expected"] = bool(torch.isnan(got[1][1]).all())
+            elif row1 == "masked":
+                outs["dq"]["expected"] = row1_as_expected(got[0], row1)
+            worst = max(worst, emit_case("kernel_bwd_noclamp", name, q, k, uv,
+                                         outs))
+            del o, lse, got, want
+    return {"max_abs_err": worst}
+
+
+def phase_serving(card: str, safe: bool = False) -> dict:
+    """The serving path: 16 requests through the micro-batcher, then the
+    logits of one forward through the kernel against the plain path.
+    `safe` runs it with the safe softmax on (phase `safe_serving`): K3 in
+    place of K1."""
+    phase = "safe_serving" if safe else "serving"
+    kname = "K3" if safe else "K1"
+    attr, plain = (("flash_fwd_online", fk.flash_fwd_online_reference)
+                   if safe else
+                   ("flash_fwd_nomax", fk.flash_fwd_nomax_reference))
     t0 = time.monotonic()
     runner, img_size = serve.build_model_runner(
         "ade_semantic", NUM_CLASSES, None, compute_dtype="bfloat16",
@@ -335,23 +460,26 @@ def phase_serving(card: str) -> dict:
     images = [rng.integers(0, 256, (img_size, img_size, 3)).astype(np.uint8)
               for _ in range(16)]
     batcher = serve._Batcher(runner, BATCH, max_wait_ms=20.0)
-    fk.flash_fwd_nomax.launches = 0              # the main path's run
+    zero_launches()                              # the main path's run
     with ThreadPoolExecutor(4) as ex:
         answers = list(ex.map(batcher.predict, images))
-    launches = fk.flash_fwd_nomax.launches
+    counts = kernel_launches()
+    launches = counts[kname]
     metrics = batcher.metrics()
     check(metrics["requests"] == 16 and metrics["errors"] == 0,
-          f"16 requests answered: {metrics}")
-    check(launches == 6 * metrics["batches"] and launches > 0,
-          f"6 kernel launches per forward: {launches} launches, "
-          f"{metrics['batches']} forwards")
+          f"{phase}: 16 requests answered: {metrics}")
+    check(launches == 6 * metrics["batches"] and launches > 0
+          and sum(counts.values()) == launches,
+          f"{phase}: 6 {kname} launches per forward, no other kernel: "
+          f"{counts}, {metrics['batches']} forwards")
 
     equal = 0
     for img, ans in zip(images, answers):
         direct = runner(np.stack([img] * BATCH))[0].cpu().numpy()
         equal += int(ans.shape == (img_size, img_size)
                      and ans.dtype == np.uint8 and np.array_equal(ans, direct))
-    check(equal == 16, f"answers equal direct runner calls ({equal}/16)")
+    check(equal == 16, f"{phase}: answers equal direct runner calls "
+          f"({equal}/16)")
 
     # logits of the kernel path vs the plain-version path, same weights
     forward, params, masks, cfg = serve.build_inference_fn(
@@ -360,39 +488,44 @@ def phase_serving(card: str) -> dict:
     x = torch.from_numpy(np.stack(images[:BATCH])).cuda().float() / 255.0
     plans = mu.precompute_mask_plans(masks)
     with torch.no_grad():
-        before = fk.flash_fwd_nomax.launches
+        zero_launches()
         out_k, _ = mu.apply(params, None, x, cfg=cfg, masks=masks,
                             folded=True, mask_plans=plans)
-        check(fk.flash_fwd_nomax.launches - before == 6,
-              "one forward launches the kernel 6 times")
-        kernel_fn = fk.flash_fwd_nomax
-        fk.flash_fwd_nomax = fk.flash_fwd_nomax_reference
+        one = kernel_launches()
+        check(one[kname] == 6 and sum(one.values()) == 6,
+              f"{phase}: one forward launches {kname} 6 times and no other "
+              f"kernel: {one}")
+        kernel_fn = getattr(fk, attr)
+        setattr(fk, attr, plain)
         try:
             out_p, _ = mu.apply(params, None, x, cfg=cfg, masks=masks,
                                 folded=True, mask_plans=plans)
         finally:
-            fk.flash_fwd_nomax = kernel_fn
+            setattr(fk, attr, kernel_fn)
     lk, lp = out_k.semantic.float(), out_p.semantic.float()
     finite = bool(torch.isfinite(lk).all())
     err = float((lk - lp).abs().max())
     scale = float(lp.abs().max())
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-    emit(phase="serving", card=card, setup_s=setup_s, requests=16,
+    emit(phase=phase, card=card, setup_s=setup_s, requests=16,
          forwards=metrics["batches"], kernel_launches=launches,
+         launches_one_forward=one,
          answers_equal_direct=equal, logits_shape=list(lk.shape),
          logits_finite=finite, logits_max_abs_diff_vs_plain=err,
          logits_max_abs=scale, tol=SERVE_LOGIT_TOL * scale,
          argmax_agreement=agree, avg_batch_fill=metrics["avg_batch_fill"])
     check(list(lk.shape) == [BATCH, IMG, IMG, NUM_CLASSES] and finite,
-          "logits finite, [8,128,128,150]")
-    check(err <= SERVE_LOGIT_TOL * scale, "logits kernel vs plain")
-    check(agree >= SERVE_ARGMAX_AGREE, "argmax agreement kernel vs plain")
+          f"{phase}: logits finite, [8,128,128,150]")
+    check(err <= SERVE_LOGIT_TOL * scale, f"{phase}: logits kernel vs plain")
+    check(agree >= SERVE_ARGMAX_AGREE,
+          f"{phase}: argmax agreement kernel vs plain")
     return {"runner": runner, "launches": launches, "images": images}
 
 
-def phase_times(card: str, serving: dict) -> dict:
-    runner = serving["runner"]
-    batch = np.stack(serving["images"][:BATCH])
+def serve_wall_and_profile(card: str, runner, batch, prefix: str,
+                           tag: str) -> None:
+    """Serving forward wall time (best of 3 x 10) and a device profile of
+    three forwards; `tag` names the flash kernel in the profile."""
     best = float("inf")
     for _ in range(3):
         torch.cuda.synchronize()
@@ -401,7 +534,7 @@ def phase_times(card: str, serving: dict) -> dict:
             runner(batch)
         torch.cuda.synchronize()
         best = min(best, (time.perf_counter() - t0) / 10)
-    emit(phase="serve_time", card=card, ms_per_batch=best * 1e3,
+    emit(phase=f"{prefix}serve_time", card=card, ms_per_batch=best * 1e3,
          img_per_s=BATCH / best, batch=BATCH, windows="best of 3 x 10")
 
     # device profile of three serving forwards: where the time goes
@@ -416,8 +549,8 @@ def phase_times(card: str, serving: dict) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = device_kernel_rows(prof)
     total_dev = sum(r[0] for r in rows)
-    flash_us = sum(r[0] for r in rows if "fwd_nomax" in r[1])
-    emit(phase="serve_profile", card=card, forwards=3,
+    flash_us = sum(r[0] for r in rows if tag in r[1])
+    emit(phase=f"{prefix}serve_profile", card=card, forwards=3,
          device_ms_per_forward=total_dev / 3e3 if rows else "not measured",
          wall_ms_per_forward=wall_us / 3e3,
          device_busy_share=total_dev / wall_us if rows else "not measured",
@@ -426,33 +559,47 @@ def phase_times(card: str, serving: dict) -> dict:
          top=[{"name": k[:90], "ms_per_forward": us / 3e3, "calls": n // 3}
               for us, k, n in rows[:12]])
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
+
+def phase_times(card: str, serving: dict) -> dict:
+    serve_wall_and_profile(card, serving["runner"],
+                           np.stack(serving["images"][:BATCH]), "",
+                           "fwd_nomax")
+    totals = forward_shape_times(card, "attn_time", fk.flash_fwd_nomax,
+                                 fk.flash_fwd_nomax_reference, seed=1)
+    totals["launches"] = serving["launches"]
+    return totals
+
+
+def forward_shape_times(card: str, phase: str, kernel, plain,
+                        seed: int, lse: bool = False) -> dict:
+    """Per serving attention shape, bf16: the forward `kernel` and its
+    `plain` version (both called (q, k, v, bias, 1.0, use_valid)), the
+    library's SDPA with the same additive mask, and the bound (plus the
+    lse bytes when `lse`). Returns the sums over the six shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
               "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
     for name, lq, lk, c, uv in SERVING_SHAPES:
         q, k, v, bias = attention_inputs(gen, lq, lk, c, uv, torch.bfloat16)
-        ms = device_ms(lambda: fk.flash_fwd_nomax(q, k, v, bias, 1.0, uv),
-                       iters=20)
-        plain = device_ms(lambda: fk.flash_fwd_nomax_reference(
-            q, k, v, bias, 1.0, uv), iters=2)
+        ms = device_ms(lambda: kernel(q, k, v, bias, 1.0, uv), iters=20)
+        plain_ms = device_ms(lambda: plain(q, k, v, bias, 1.0, uv), iters=2)
         q4, k4, v4 = q[:, None], k[:, None], v[:, None]
         amask = bias[:, None].to(q.dtype)
         lib = device_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=amask, scale=1.0), iters=20)
         t_bytes, t_ops = bound_ms(q, k, bias)
+        if lse:
+            t_bytes += 4 * BATCH * lq / PEAK["bytes"] * 1e3
         bnd = max(t_bytes, t_ops)
         by = "bytes" if t_bytes > t_ops else "operations"
-        emit(phase="attn_time", card=card, layer=name, lq=lq, lk=lk, c=c,
+        emit(phase=phase, card=card, layer=name, lq=lq, lk=lk, c=c,
              batch=BATCH, dtype="bfloat16", use_valid=uv, ms=ms,
-             plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+             plain_ms=plain_ms, library_ms=lib, bound_ms=bnd, bound_by=by,
              share_of_bound=bnd / ms)
-        totals["ms"] += ms
-        totals["plain_ms"] += plain
-        totals["library_ms"] += lib
-        totals["bound_ms"] += bnd
-        totals["bytes_ms"] += t_bytes
-        totals["ops_ms"] += t_ops
-    totals["launches"] = serving["launches"]
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib), ("bound_ms", bnd),
+                         ("bytes_ms", t_bytes), ("ops_ms", t_ops)):
+            totals[key] += val
     return totals
 
 
@@ -467,19 +614,30 @@ def exact_zero_grad(name: str) -> bool:
             or (name.startswith("upsample") and ".1.conv_block.4." in name))
 
 
+def counted_wrappers() -> dict:
+    """Every kernel's wrapper, the holder of its launch counter."""
+    return {"K1": fk.flash_fwd_nomax, "K2": fk.flash_fwd_nomax_lse,
+            "K3": fk.flash_fwd_online, "K4": fk.flash_bwd,
+            "K5": softmax_ab.old_flash_fwd, "K6": softmax_ab.nomax65_fwd,
+            "K7": bf16_tool.flash_fwd_bf16}
+
+
 def kernel_launches() -> dict:
-    return {"K1": fk.flash_fwd_nomax.launches,
-            "K2": fk.flash_fwd_nomax_lse.launches,
-            "K4": fk.flash_bwd.launches}
+    return {k: fn.launches for k, fn in counted_wrappers().items()}
 
 
 def zero_launches() -> None:
-    fk.flash_fwd_nomax.launches = 0
-    fk.flash_fwd_nomax_lse.launches = 0
-    fk.flash_bwd.launches = 0
+    for fn in counted_wrappers().values():
+        fn.launches = 0
 
 
-def phase_train(card: str) -> dict:
+def phase_train(card: str, safe: bool = False) -> dict:
+    """The training path: one step, one eval step, gradients through the
+    kernels against the plain path, 10 steps. `safe` runs it with the safe
+    softmax on (phases `safe_train*`): K3 in place of K2 (and of K1 in
+    the eval step), K4 without its clamp."""
+    prefix = "safe_" if safe else ""
+    fwd = "K3" if safe else "K2"
     t0 = time.monotonic()
     recipe = recipes.get("ade_semantic")
     cfg = train_loop.model_config(recipe, NUM_CLASSES,
@@ -499,22 +657,38 @@ def phase_train(card: str) -> dict:
                  0, NUM_CLASSES, (BATCH, IMG, IMG))).cuda()}
     setup_s = time.monotonic() - t0
 
-    # the main path: one training step, counters zeroed just before it
-    zero_launches()
-    ts, metrics = step(ts, batch)
-    torch.cuda.synchronize()
-    step_launches = kernel_launches()
-    check(step_launches == {"K1": 0, "K2": 6, "K4": 6},
-          f"one train step launches K2 6, K4 6, K1 0: {step_launches}")
+    # the main path: one training step, counters zeroed just before it;
+    # the clamp flag of each backward launch is recorded on the way
+    clamps = []
+    bwd_kernel = fk.flash_bwd
+
+    def recorded_bwd(*args, **kw):
+        clamps.append(kw.get("clamp", True))
+        return bwd_kernel(*args, **kw)
+
+    fk.flash_bwd = recorded_bwd
+    try:
+        zero_launches()
+        ts, metrics = step(ts, batch)
+        torch.cuda.synchronize()
+        step_launches = kernel_launches()
+    finally:
+        fk.flash_bwd = bwd_kernel
+    want = dict.fromkeys(counted_wrappers(), 0)
+    check(step_launches == {**want, fwd: 6, "K4": 6}
+          and clamps == [not safe] * 6,
+          f"one {prefix}train step launches {fwd} 6, K4 6 (clamp "
+          f"{not safe}), no other kernel: {step_launches}, clamps {clamps}")
     zero_launches()
     result = eval_step(ts, batch, plans)
     torch.cuda.synchronize()
     eval_launches = kernel_launches()
-    check(eval_launches == {"K1": 6, "K2": 0, "K4": 0},
-          f"one eval step launches K1 6: {eval_launches}")
+    check(eval_launches == {**want, "K3" if safe else "K1": 6},
+          f"one {prefix}eval step launches {'K3' if safe else 'K1'} 6: "
+          f"{eval_launches}")
     check(list(result["pred"].shape) == [BATCH, IMG, IMG]
           and bool(torch.isfinite(result["metrics"]["loss"])),
-          "eval step: finite loss, [8,128,128] predictions")
+          f"{prefix}eval step: finite loss, [8,128,128] predictions")
 
     # gradients through the kernels vs through their plain versions: same
     # state, batch and dropout draws, in f32 and in bf16
@@ -524,16 +698,19 @@ def phase_train(card: str) -> dict:
     def grads(model_cfg, plain: bool):
         ts.generator.set_state(gen_state)
         fn = train_step.make_grads_and_metrics(model_cfg, task)
-        kernels = fk.flash_fwd_nomax_lse, fk.flash_bwd
+        kernels = (fk.flash_fwd_nomax_lse, fk.flash_fwd_online,
+                   fk.flash_bwd)
         if plain:
             fk.flash_fwd_nomax_lse = functools.partial(
                 fk.flash_fwd_nomax_reference, with_lse=True)
+            fk.flash_fwd_online = fk.flash_fwd_online_reference
             fk.flash_bwd = fk.flash_bwd_reference
         try:
             g, m, _ = fn(ts.params, ts.model_state, batch, ts.masks, plans,
                          ts.generator)
         finally:
-            fk.flash_fwd_nomax_lse, fk.flash_bwd = kernels
+            fk.flash_fwd_nomax_lse, fk.flash_fwd_online, fk.flash_bwd = \
+                kernels
         return ({k: v.double().flatten() for k, v in g.items()
                  if not exact_zero_grad(k)}, float(m["loss"]))
 
@@ -551,7 +728,8 @@ def phase_train(card: str) -> dict:
     worst32, worst_bf = min(cos32, key=cos32.get), min(margin, key=margin.get)
     bf_vs_plain = {n: cos(kbf[n], pbf[n]) for n in pbf}
     least = min(bf_vs_plain, key=bf_vs_plain.get)
-    emit(phase="train_vs_plain", card=card, loss_f32_kernels=loss_k32,
+    emit(phase=f"{prefix}train_vs_plain", card=card,
+         loss_f32_kernels=loss_k32,
          loss_f32_plain=loss_p32, loss_bf16_kernels=loss_kbf,
          loss_bf16_plain=loss_pbf,
          loss_bf16_rel_diff=abs(loss_kbf - loss_pbf) / abs(loss_pbf),
@@ -567,25 +745,68 @@ def phase_train(card: str) -> dict:
          bf16_worst_margin_tensor=worst_bf,
          bf16_margin_limit=-BF16_COS_MARGIN, grads_finite=finite)
     check(cos32[worst32] >= TRAIN_GRAD_COS,
-          "f32 train gradients, kernels vs plain")
+          f"{prefix}f32 train gradients, kernels vs plain")
     check(abs(loss_kbf - loss_pbf) <= TRAIN_LOSS_RTOL * abs(loss_pbf),
-          "bf16 train loss, kernels vs plain")
+          f"{prefix}bf16 train loss, kernels vs plain")
     check(margin[worst_bf] >= -BF16_COS_MARGIN and finite,
-          "bf16 train gradients as close to f32 as the plain path's")
+          f"{prefix}bf16 train gradients as close to f32 as the plain "
+          "path's")
     del k32, kbf, pbf
 
     losses = [float(metrics["loss"])]
     for _ in range(TRAIN_STEPS - 1):
         ts, metrics = step(ts, batch)
         losses.append(float(metrics["loss"]))
-    emit(phase="train", card=card, setup_s=setup_s, batch=BATCH,
-         step_launches=step_launches, eval_launches=eval_launches,
-         losses=losses, miou_last=float(metrics["miou"]),
+    emit(phase=f"{prefix}train", card=card, setup_s=setup_s, batch=BATCH,
+         step_launches=step_launches, step_bwd_clamps=clamps,
+         eval_launches=eval_launches, losses=losses,
+         miou_last=float(metrics["miou"]),
          eval_metrics={k: float(v) for k, v in result["metrics"].items()})
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-          f"{TRAIN_STEPS} steps: finite loss that falls")
+          f"{prefix}{TRAIN_STEPS} steps: finite loss that falls")
     return {"ts": ts, "step": step, "batch": batch,
             "launches": step_launches}
+
+
+def train_wall_and_profile(card: str, train: dict, prefix: str,
+                           shares: dict) -> None:
+    """Training step wall time (best of 3 x 10) and a device profile of 3
+    steps; `shares` names the share keys and the kernel name each reads.
+    Drops the training state afterwards."""
+    step, batch, ts = train["step"], train["batch"], train["ts"]
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            ts, _ = step(ts, batch)
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) / 10)
+    emit(phase=f"{prefix}train_time", card=card, ms_per_step=best * 1e3,
+         img_per_s=BATCH / best, batch=BATCH, windows="best of 3 x 10")
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            ts, _ = step(ts, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = device_kernel_rows(prof)
+    total = sum(r[0] for r in rows)
+    share = (lambda tag: sum(r[0] for r in rows if tag in r[1]) / total
+             if rows else "not measured")
+    emit(phase=f"{prefix}train_profile", card=card, steps=3,
+         device_ms_per_step=total / 3e3 if rows else "not measured",
+         wall_ms_per_step=wall_us / 3e3,
+         device_busy_share=total / wall_us if rows else "not measured",
+         **{key: share(tag) for key, tag in shares.items()},
+         device_launches_per_step=sum(r[2] for r in rows) / 3,
+         top=[{"name": k[:90], "ms_per_step": us / 3e3, "calls": n // 3}
+              for us, k, n in rows[:15]])
+    del ts, train["ts"]
 
 
 def bwd_bound_ms(q, k, bias) -> tuple[float, float]:
@@ -603,41 +824,8 @@ def bwd_bound_ms(q, k, bias) -> tuple[float, float]:
 
 
 def phase_train_time(card: str, train: dict) -> dict:
-    step, batch, ts = train["step"], train["batch"], train["ts"]
-    best = float("inf")
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(10):
-            ts, _ = step(ts, batch)
-        torch.cuda.synchronize()
-        best = min(best, (time.perf_counter() - t0) / 10)
-    emit(phase="train_time", card=card, ms_per_step=best * 1e3,
-         img_per_s=BATCH / best, batch=BATCH, windows="best of 3 x 10")
-
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            ts, _ = step(ts, batch)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = device_kernel_rows(prof)
-    total = sum(r[0] for r in rows)
-    share = (lambda tag: sum(r[0] for r in rows if tag in r[1]) / total
-             if rows else "not measured")
-    emit(phase="train_profile", card=card, steps=3,
-         device_ms_per_step=total / 3e3 if rows else "not measured",
-         wall_ms_per_step=wall_us / 3e3,
-         device_busy_share=total / wall_us if rows else "not measured",
-         k2_share=share("fwd_nomax"), k4_share=share("bwd_bf16"),
-         device_launches_per_step=sum(r[2] for r in rows) / 3,
-         top=[{"name": k[:90], "ms_per_step": us / 3e3, "calls": n // 3}
-              for us, k, n in rows[:15]])
-    del ts, train["ts"]
-
+    train_wall_and_profile(card, train, "", {"k2_share": "fwd_nomax",
+                                             "k4_share": "bwd_bf16"})
     gen = torch.Generator(device="cuda").manual_seed(4)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms")
     totals = {"K2": dict.fromkeys(keys, 0.0), "K4": dict.fromkeys(keys, 0.0)}
@@ -681,6 +869,119 @@ def phase_train_time(card: str, train: dict) -> dict:
     return totals
 
 
+def phase_safe(card: str) -> dict:
+    """The serving and training paths with the safe softmax on: their
+    checks, wall times and device profiles. Returns the launches of K3
+    (16 served requests + one step) and of K4 (one step)."""
+    fa._SAFE_SOFTMAX = True
+    try:
+        serving = phase_serving(card, safe=True)
+        serve_wall_and_profile(card, serving["runner"],
+                               np.stack(serving["images"][:BATCH]), "safe_",
+                               "fwd_online")
+        del serving["runner"]
+        train = phase_train(card, safe=True)
+        train_wall_and_profile(card, train, "safe_",
+                               {"k3_share": "fwd_online",
+                                "k4_share": "bwd_bf16"})
+    finally:
+        fa._SAFE_SOFTMAX = False
+    return {"K3": serving["launches"] + train["launches"]["K3"],
+            "K4": train["launches"]["K4"]}
+
+
+def tool_cases() -> list:
+    """(kernel, name, call, plain call, bound (bytes ms, ops ms), library
+    call) of K5, K6 (D and E) and K7 at their tools' attn6 inputs."""
+    q, k, v, bias = softmax_ab.attn6_inputs(BATCH)
+    q65, k65 = softmax_ab.bias_as_channel(q, k, bias)
+    bq, bk, bv, bbias = bf16_tool.attn6_inputs(BATCH)
+    lq, lk, c = q.shape[1], k.shape[1], q.shape[2]
+    e = q.element_size()
+    k6_bytes = (q65.numel() + k65.numel() + v.numel() + q.numel()) * e
+    k6_ops = max(2 * BATCH * lq * lk * (C65 + c) / PEAK[torch.bfloat16],
+                 BATCH * lq * lk / PEAK["exp2"])
+    k5_bound = bound_ms(q, k, bias)
+    k7_bound = bound_ms(bq, bk, bbias)
+    lse_ms = 4 * BATCH * lq / PEAK["bytes"] * 1e3
+    sdpa = (lambda q_, k_, v_, b_: lambda: F.scaled_dot_product_attention(
+        q_[:, None], k_[:, None], v_[:, None],
+        attn_mask=b_[:, None].to(q_.dtype), scale=1.0))
+    return [
+        ("K5", "old_flash_fwd",
+         lambda: softmax_ab.old_flash_fwd(q, k, v, bias),
+         lambda: softmax_ab.old_flash_fwd_reference(q, k, v, bias),
+         (k5_bound[0] + lse_ms, k5_bound[1]), sdpa(q, k, v, bias)),
+        ("K6", "nomax65_fwd_D",
+         lambda: softmax_ab.nomax65_fwd(q65, k65, v, True),
+         lambda: softmax_ab.nomax65_fwd_reference(q65, k65, v, True),
+         (k6_bytes / PEAK["bytes"] * 1e3, k6_ops * 1e3),
+         lambda: F.scaled_dot_product_attention(
+             q65[:, None], k65[:, None], v[:, None], scale=math.log(2.0))),
+        ("K6", "nomax65_fwd_E",
+         lambda: softmax_ab.nomax65_fwd(q65, k65, v, False),
+         lambda: softmax_ab.nomax65_fwd_reference(q65, k65, v, False),
+         (k6_bytes / PEAK["bytes"] * 1e3, k6_ops * 1e3),
+         lambda: F.scaled_dot_product_attention(
+             q65[:, None], k65[:, None], v[:, None], scale=math.log(2.0))),
+        ("K7", "flash_fwd_bf16", lambda: bf16_tool.flash_fwd_bf16(
+            bq, bk, bv, bbias),
+         lambda: bf16_tool.flash_fwd_bf16_reference(bq, bk, bv, bbias),
+         (k7_bound[0] + lse_ms, k7_bound[1]), sdpa(bq, bk, bv, bbias)),
+    ]
+
+
+def phase_tools(card: str) -> dict:
+    """K5, K6 and K7 against their plain versions at the tools' inputs,
+    the three tool mains (the launches counted), then each kernel timed.
+    Returns {kernel: {launches, max_abs_err, ms, plain_ms, library_ms,
+    bytes_ms, ops_ms, bound_ms}} (K6: the clamped variant D's times)."""
+    out = {}
+    cases = tool_cases()
+    for kname, name, call, plain, _, _ in cases:
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        got, want = ((got, want) if isinstance(got, tuple)
+                     else ((got,), (want,)))
+        outs = {n: agreement(g, w) for n, g, w in zip(("o", "lse"), got, want)}
+        ok = all(a["ok"] for a in outs.values())
+        emit(phase="tools", case=name, dtype="bfloat16",
+             shape=list(got[0].shape), outputs=outs, ok=ok)
+        check(ok, f"tools {name}")
+        err = max(a["max_abs_err"] for a in outs.values())
+        out.setdefault(kname, {"max_abs_err": 0.0})
+        out[kname]["max_abs_err"] = max(out[kname]["max_abs_err"], err)
+        del got, want
+
+    zero_launches()                              # the tools' main paths
+    printed = {"softmax_ab": softmax_ab.main([]),
+               "softmax_ab_2": softmax_ab.main2(["2"]),
+               "bf16_softmax_experiment": bf16_tool.main()}
+    torch.cuda.synchronize()
+    counts = kernel_launches()
+    emit(phase="tool_mains", card=card, printed=printed, launches=counts)
+    check(all(counts[kn] > 0 for kn in ("K5", "K6", "K7")),
+          f"the tool mains launch K5, K6 and K7: {counts}")
+    check(all(math.isfinite(float(t)) for p in printed.values()
+              for t in p["ms"].values()), "tool mains: finite times")
+
+    for kname, name, call, plain, (t_bytes, t_ops), lib in cases:
+        row = {"ms": device_ms(call, iters=20),
+               "plain_ms": device_ms(plain, iters=2),
+               "library_ms": device_ms(lib, iters=20),
+               "bytes_ms": t_bytes, "ops_ms": t_ops,
+               "bound_ms": max(t_bytes, t_ops)}
+        emit(phase="tool_time", card=card, kernel=kname, case=name,
+             batch=BATCH, dtype="bfloat16", **row,
+             bound_by="bytes" if t_bytes > t_ops else "operations",
+             share_of_bound=row["bound_ms"] / row["ms"])
+        if name != "nomax65_fwd_E":
+            out[kname].update(row)
+    for kname in out:
+        out[kname]["launches"] = counts[kname]
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, err, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -708,11 +1009,22 @@ def main() -> int:
     del serving
     train = phase_train(card)
     train_totals = phase_train_time(card, train)
-    # every kernel of the serving and training paths; times are summed
-    # over the six attention shapes (one forward's or one step's launches),
-    # bf16, batch 8; launches are those of the path's own run (16 served
-    # requests for K1, one training step for K2 and K4)
+    kernel_online = phase_kernel_online()
+    kernel_bwd_noclamp = phase_kernel_bwd_noclamp()
+    safe = phase_safe(card)
+    online_totals = forward_shape_times(
+        card, "online_attn_time", fk.flash_fwd_online,
+        fk.flash_fwd_online_reference, seed=7, lse=True)
+    tools = phase_tools(card)
+    # every kernel of the port; K1-K4 times are summed over the six
+    # attention shapes (one forward's or one step's launches), K5-K7's are
+    # one call at their tool's attn6 inputs (K6: variant D), bf16, batch
+    # 8; launches are those of the paths' own runs: 16 served requests
+    # (K1), one training step (K2), 16 safe requests and one safe step
+    # (K3), one step of each path (K4, clamped then not), the tool mains
+    # (K5-K7)
     fwd_src = "maskunet_tpu_torch/csrc/flash_fwd_nomax.cu"
+    online_src = "maskunet_tpu_torch/csrc/flash_fwd_online.cu"
     kernels = [
         kernel_entry("flash_fwd_nomax", fwd_src,
                      "maskunet_tpu/ops/flash_attention.py:164",
@@ -721,10 +1033,26 @@ def main() -> int:
                      "maskunet_tpu/ops/flash_attention.py:267",
                      train["launches"]["K2"], kernel_lse["max_abs_err"],
                      train_totals["K2"]),
+        kernel_entry("flash_fwd_online", online_src,
+                     "maskunet_tpu/ops/flash_attention.py:111",
+                     safe["K3"], kernel_online["max_abs_err"], online_totals),
         kernel_entry("flash_bwd", "maskunet_tpu_torch/csrc/flash_bwd.cu",
                      "maskunet_tpu/ops/flash_attention.py:323",
-                     train["launches"]["K4"], kernel_bwd["max_abs_err"],
+                     train["launches"]["K4"] + safe["K4"],
+                     max(kernel_bwd["max_abs_err"],
+                         kernel_bwd_noclamp["max_abs_err"]),
                      train_totals["K4"]),
+        kernel_entry("old_flash_fwd", online_src, "tools/softmax_ab.py:29",
+                     tools["K5"]["launches"], tools["K5"]["max_abs_err"],
+                     tools["K5"]),
+        kernel_entry("nomax65_fwd",
+                     "maskunet_tpu_torch/csrc/flash_fwd_nomax65.cu",
+                     "tools/softmax_ab.py:157", tools["K6"]["launches"],
+                     tools["K6"]["max_abs_err"], tools["K6"]),
+        kernel_entry("flash_fwd_bf16", online_src,
+                     "tools/bf16_softmax_experiment.py:32",
+                     tools["K7"]["launches"], tools["K7"]["max_abs_err"],
+                     tools["K7"]),
     ]
     emit(phase="done", seconds=time.monotonic() - t0, failures=failures)
     if failures:

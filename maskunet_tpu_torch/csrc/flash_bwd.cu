@@ -8,7 +8,10 @@
 //
 //   s   = (q_i * qmul) . k_j + bias_j   qmul = scale*log2e, q*qmul rounded to
 //                                       q's dtype exactly as the forward did
-//   s   = min(s, 60)                    NaN-propagating, the forward's clamp
+//   s   = min(s, 60)                    NaN-propagating, the no-max forward's
+//                                       clamp; `clamp` = 0 skips it (after the
+//                                       online-max forward, flash_fwd_online.cu,
+//                                       whose lse may exceed 60)
 //   p   = exp2(s - lse_i) [* valid_j]   valid only with use_valid
 //   dV_j += p (rounded to dO's dtype) * dO_i
 //   ds  = p * (dO_i . v_j - delta_i)    f32
@@ -161,7 +164,7 @@ struct BwdTile {
                                  size_t(BK + 4 * BQ) * sizeof(float);
 };
 
-template <int C, int BQ, int KW, int CS, bool USE_VALID>
+template <int C, int BQ, int KW, int CS, bool USE_VALID, bool CLAMP>
 __global__ void __launch_bounds__(32 * KW * CS, 1)
 bwd_bf16(const __nv_bfloat16* __restrict__ q,
          const __nv_bfloat16* __restrict__ k,
@@ -310,7 +313,8 @@ bwd_bf16(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int col = j * 8 + 2 * t + (e & 1);
         const float bb = e < 2 ? bb0 : bb1;
-        float p = ex2(clamp_hi(st[j][e] + bb) - lt[col]);
+        const float x = st[j][e] + bb;
+        float p = ex2((CLAMP ? clamp_hi(x) : x) - lt[col]);
         if (USE_VALID) p *= (bb > kValidThreshold) ? 1.f : 0.f;
         st[j][e] = q0 + col < lq ? p : 0.f;
       }
@@ -461,7 +465,7 @@ struct BwdF32Tile {
                        3 * size_t(kT32));
 };
 
-template <int C, bool USE_VALID>
+template <int C, bool USE_VALID, bool CLAMP>
 __global__ void __launch_bounds__(256)
 bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         const float* __restrict__ v, const float* __restrict__ bias,
@@ -551,7 +555,8 @@ bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int m = 0; m < 4; ++m) {
       const int j = part + 8 * m;
       const float bb = bs[j];
-      float p = ex2(clamp_hi(s[m] + bb) - lt[row]);
+      const float x = s[m] + bb;
+      float p = ex2((CLAMP ? clamp_hi(x) : x) - lt[row]);
       if (USE_VALID) p *= (bb > kValidThreshold) ? 1.f : 0.f;
       p = row_in ? p : 0.f;
       ps[row * PS + j] = p;
@@ -646,7 +651,7 @@ cudaError_t launch(Kernel kernel, std::atomic<uint32_t>& set_on, int keys,
   return cudaGetLastError();
 }
 
-template <int C, bool UV>
+template <int C, bool UV, bool CL>
 cudaError_t run(bool bf16, const Args& a) {
   if (bf16) {
     // C = 64: 8 warps of 16 keys, 64 queries a step. C = 128: 4 warps,
@@ -657,17 +662,19 @@ cudaError_t run(bool bf16, const Args& a) {
     constexpr int CS = C == 256 ? 2 : 1;
     using T = BwdTile<C, BQ, KW, CS>;
     static std::atomic<uint32_t> bf16_set_on{0};
-    return launch<__nv_bfloat16>(&bwd_bf16<C, BQ, KW, CS, UV>, bf16_set_on,
-                                 T::BK, T::NT, T::smem, a);
+    return launch<__nv_bfloat16>(&bwd_bf16<C, BQ, KW, CS, UV, CL>,
+                                 bf16_set_on, T::BK, T::NT, T::smem, a);
   }
   static std::atomic<uint32_t> f32_set_on{0};
-  return launch<float>(&bwd_f32<C, UV>, f32_set_on, kT32, 256,
+  return launch<float>(&bwd_f32<C, UV, CL>, f32_set_on, kT32, 256,
                        BwdF32Tile<C>::smem, a);
 }
 
 template <int C>
-cudaError_t run_c(bool bf16, bool use_valid, const Args& a) {
-  return use_valid ? run<C, true>(bf16, a) : run<C, false>(bf16, a);
+cudaError_t run_c(bool bf16, bool use_valid, bool clamp, const Args& a) {
+  if (clamp)
+    return use_valid ? run<C, true, true>(bf16, a) : run<C, false, true>(bf16, a);
+  return use_valid ? run<C, true, false>(bf16, a) : run<C, false, false>(bf16, a);
 }
 
 }  // namespace
@@ -675,22 +682,23 @@ cudaError_t run_c(bool bf16, bool use_valid, const Args& a) {
 // q, k, v, dout: [B, Lq|Lk, C] contiguous, all bf16 (is_bf16 = 1) or all
 // f32; bias: [B, 1, Lk] f32; lse, delta: [B, 1, Lq] f32; dq: [B, Lq, C] f32,
 // zeroed by the caller (the kernel adds to it); dk, dv: [B, Lk, C] in k's
-// dtype. C in {64, 128, 256}. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// dtype. C in {64, 128, 256}. `clamp` = 1 clamps s at 60 as the no-max
+// forward did; 0 takes exp2(s - lse) as is (the online-max forward's lse).
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* bias, const void* dout, const void* lse,
                          const void* delta, void* dq, void* dk, void* dv,
                          int b, int lq, int lk, int c, int is_bf16,
-                         int use_valid, float qmul, float scale,
+                         int use_valid, int clamp, float qmul, float scale,
                          void* stream) {
   if (b <= 0 || lk <= 0) return int(cudaSuccess);
   const Args a{q, k, v, bias, dout, lse, delta, dq, dk, dv, b, lq, lk,
                qmul, scale, static_cast<cudaStream_t>(stream)};
-  const bool bf16 = is_bf16 != 0, uv = use_valid != 0;
+  const bool bf16 = is_bf16 != 0, uv = use_valid != 0, cl = clamp != 0;
   switch (c) {
-    case 64: return int(run_c<64>(bf16, uv, a));
-    case 128: return int(run_c<128>(bf16, uv, a));
-    case 256: return int(run_c<256>(bf16, uv, a));
+    case 64: return int(run_c<64>(bf16, uv, cl, a));
+    case 128: return int(run_c<128>(bf16, uv, cl, a));
+    case 256: return int(run_c<256>(bf16, uv, cl, a));
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -10,12 +10,16 @@ none, is NaN-poisoned so a wrong answer is loud.
 `flash_mha` mirrors the JAX custom VJP (flash_attention.py:446-474): with
 no gradient to take it runs K1 (`flash_fwd_nomax`); under autograd it runs
 `_FlashMHA`, whose forward is K2 (`flash_fwd_nomax_lse`) and whose backward
-is K4 (`flash_bwd`).
+is K4 (`flash_bwd`) with its clamp at 2^60. MASKUNET_SAFE_SOFTMAX=1 (read
+at import into `_SAFE_SOFTMAX`, as JAX does) swaps in K3
+(`flash_fwd_online`, the online-max forward) for both, and K4 then runs
+without the clamp.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import torch
@@ -26,16 +30,38 @@ from maskunet_tpu_torch.ops import flash_kernels
 NEG_INF = flash_kernels.NEG_INF
 _NOMAX_CLAMP = flash_kernels._NOMAX_CLAMP
 COMPACT_MIN_TOKENS = 4096
+# MASKUNET_SAFE_SOFTMAX=1: the online-max forward (K3) instead of the
+# clamped no-max one (K1, K2), for serving and training alike; the results
+# differ only where a base-2 score exceeds _NOMAX_CLAMP.
+_SAFE_SOFTMAX = os.environ.get("MASKUNET_SAFE_SOFTMAX", "0") == "1"
+
+
+def _flash_fwd(q, k, v, bias, scale, use_valid, *, need_lse: bool):
+    """(o, lse or None), dispatched as JAX's `_flash_fwd` (:227-303): K1
+    without lse, K2 with it, K3 for both under `_SAFE_SOFTMAX` (its lse is
+    dropped when not needed)."""
+    if _SAFE_SOFTMAX:
+        o, lse = flash_kernels.flash_fwd_online(q, k, v, bias, scale,
+                                                use_valid)
+        return o, lse if need_lse else None
+    if need_lse:
+        return flash_kernels.flash_fwd_nomax_lse(q, k, v, bias, scale,
+                                                 use_valid)
+    return flash_kernels.flash_fwd_nomax(q, k, v, bias, scale,
+                                         use_valid), None
 
 
 class _FlashMHA(torch.autograd.Function):
-    """`flash_mha` under autograd: K2 forward saving (q, k, v, bias, o,
-    lse), K4 backward. The bias gets no gradient, as in JAX (:471)."""
+    """`flash_mha` under autograd: the K2 (or, safe, K3) forward saving (q,
+    k, v, bias, o, lse), the K4 backward, clamped after K2 only. `ctx.safe`
+    is the switch as the forward saw it, so the backward matches the lse
+    it gets whatever the switch says by then. The bias gets no gradient,
+    as in JAX (:471)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale, use_valid):
-        o, lse = flash_kernels.flash_fwd_nomax_lse(q, k, v, bias, scale,
-                                                   use_valid)
+        ctx.safe = _SAFE_SOFTMAX
+        o, lse = _flash_fwd(q, k, v, bias, scale, use_valid, need_lse=True)
         ctx.save_for_backward(q, k, v, bias, o, lse)
         ctx.scale, ctx.use_valid = scale, use_valid
         return o
@@ -45,17 +71,19 @@ class _FlashMHA(torch.autograd.Function):
         q, k, v, bias, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_kernels.flash_bwd(q, k, v, bias, o, lse,
                                              do.contiguous(), ctx.scale,
-                                             ctx.use_valid)
+                                             ctx.use_valid,
+                                             clamp=not ctx.safe)
         return dq, dk, dv, None, None, None
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               bias: torch.Tensor, scale: float,
               use_valid: bool = True) -> torch.Tensor:
-    """softmax(q k^T * scale + bias) v per batch row, through the no-max
-    kernels. `use_valid=False` skips the explicit masked-key zeroing, which
-    is exact only when every row has a visible key (the compacted path
-    guarantees it). Differentiable in q, k and v; not in the bias."""
+    """softmax(q k^T * scale + bias) v per batch row, through the flash
+    kernels (`_flash_fwd`). `use_valid=False` skips the explicit masked-key
+    zeroing, which is exact only when every row has a visible key (the
+    compacted path guarantees it). Differentiable in q, k and v; not in
+    the bias."""
     if torch.is_grad_enabled():
         if bias.requires_grad:
             raise ValueError("flash_mha gives the bias no gradient (as JAX's "
@@ -63,7 +91,7 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "require grad")
         if q.requires_grad or k.requires_grad or v.requires_grad:
             return _FlashMHA.apply(q, k, v, bias, scale, use_valid)
-    return flash_kernels.flash_fwd_nomax(q, k, v, bias, scale, use_valid)
+    return _flash_fwd(q, k, v, bias, scale, use_valid, need_lse=False)[0]
 
 
 def mask_to_bias(key_mask: torch.Tensor | None, batch: int, l: int, *,

@@ -6,13 +6,19 @@ and their plain PyTorch versions.
   primal of `flash_mha`.
 - `flash_fwd_nomax_lse` (K2): the same kernel with `with_lse=True`, the
   training forward, which also returns lse2 = log2(max(l, 1e-30)).
-- `flash_bwd` (K4): the merged backward `_bwd_kernel` (:323-389).
+- `flash_fwd_online` (K3): the online-max forward `_fwd_kernel`
+  (:111-161), which returns lse2 = m + log2(max(l, 1e-30)); the safe
+  softmax that MASKUNET_SAFE_SOFTMAX=1 selects.
+- `flash_bwd` (K4): the merged backward `_bwd_kernel` (:323-389), with the
+  clamp at 2^60 (after K2) or without it (`clamp=False`, after K3).
 
-Their CUDA sources, `csrc/flash_fwd_nomax.cu` (K1 and K2) and
-`csrc/flash_bwd.cu` (K4), are compiled for sm_90a with nvcc at the first
-launch of any of them, both at once, into `maskunet_tpu_torch/_build/`
-(shared libraries with plain C entry points, loaded with ctypes), and
-launch on the current CUDA stream.
+Their CUDA sources, `csrc/flash_fwd_nomax.cu` (K1 and K2),
+`csrc/flash_fwd_online.cu` (K3, and the A/B tools' K5 and K7),
+`csrc/flash_fwd_nomax65.cu` (the tools' K6) and `csrc/flash_bwd.cu` (K4),
+are compiled for sm_90a with nvcc at the first launch of any of them, all
+at once, into `maskunet_tpu_torch/_build/` (shared libraries with plain C
+entry points, loaded with ctypes), and launch on the current CUDA stream.
+The wrappers of K5-K7 sit in `maskunet_tpu_torch/tools/`.
 
 A tensor on the CPU goes to the wrapper's plain version (`*_reference`,
 the same math in plain PyTorch); a CUDA tensor always launches the kernel
@@ -40,8 +46,9 @@ _NOMAX_CLAMP = 60.0
 KERNEL_CHANNELS = (64, 128, 256)
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = {"flash_fwd_nomax": _PKG / "csrc" / "flash_fwd_nomax.cu",
-           "flash_bwd": _PKG / "csrc" / "flash_bwd.cu"}
+SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
+           for name in ("flash_fwd_nomax", "flash_fwd_online",
+                        "flash_fwd_nomax65", "flash_bwd")}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -75,6 +82,35 @@ def flash_fwd_nomax_reference(q: torch.Tensor, k: torch.Tensor,
     return (out, lse) if with_lse else out
 
 
+def flash_fwd_online_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, bias: torch.Tensor,
+                               scale: float, use_valid: bool = True):
+    """Plain PyTorch version of K3: (o [B,Lq,C] in q's dtype, lse [B,1,Lq]
+    f32). Follows the TPU kernel's arithmetic with the row max taken over
+    all keys at once: q*scale*log2e rounded to q's dtype, s = q k^T + bias
+    in f32, m = max(NEG_INF, max_j s) (amax and clamp keep NaN), p =
+    exp2(s - m) [* valid], p rounded to v's dtype for P.V while l sums the
+    f32 p; lse = m + log2(max(l, 1e-30)). A fully masked row has m =
+    NEG_INF and p = 1 on every key: o = 0 with use_valid, the mean of V
+    without."""
+    qs = q * weak_scalar(scale * _LOG2E, q.dtype)
+    valid = bias > NEG_INF * 0.5
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[0], 1, q.shape[1], device=q.device)
+    for i in range(q.shape[0]):
+        s = torch.matmul(qs[i].float(), k[i].float().transpose(0, 1))
+        s = s + bias[i]
+        m = torch.clamp(s.amax(dim=-1, keepdim=True), min=NEG_INF)
+        p = torch.exp2(s - m)
+        if use_valid:
+            p = p * valid[i]
+        l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+        acc = torch.matmul(p.to(v.dtype).float(), v[i].float())
+        out[i] = (acc / l).to(q.dtype)
+        lse[i, 0] = (m + torch.log2(l))[:, 0]
+    return out, lse
+
+
 def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """delta = sum_c dO * O in f32, [B, 1, Lq] (JAX computes it in XLA
     before the backward kernel, flash_attention.py:397-398)."""
@@ -84,12 +120,13 @@ def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: torch.Tensor, o: torch.Tensor,
                         lse: torch.Tensor, do: torch.Tensor, scale: float,
-                        use_valid: bool = True):
+                        use_valid: bool = True, clamp: bool = True):
     """Plain PyTorch version of K4: the gradients (dq, dk, dv) of the
-    attention `flash_fwd_nomax_lse` computed, in q's, k's and v's dtypes.
-    Follows the TPU kernel step by step: s = (q*scale*log2e rounded to q's
-    dtype) k^T + bias in f32, a NaN-propagating min(s, 60), p = exp2(s -
-    lse) [* valid]; dv = p(in dO's dtype)^T dO; ds = p (dO v^T - delta);
+    attention `flash_fwd_nomax_lse` (`clamp`) or `flash_fwd_online` (not
+    `clamp`) computed, in q's, k's and v's dtypes. Follows the TPU kernel
+    step by step: s = (q*scale*log2e rounded to q's dtype) k^T + bias in
+    f32, with `clamp` a NaN-propagating min(s, 60), p = exp2(s - lse) [*
+    valid]; dv = p(in dO's dtype)^T dO; ds = p (dO v^T - delta);
     ds rounded to q's dtype; dk = scale ds^T q and dq = scale ds k with the
     raw q and k, in f32. Loops over the batch to bound the [Lq, Lk]
     temporaries."""
@@ -99,7 +136,9 @@ def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     for i in range(q.shape[0]):
         s = torch.matmul(qs[i].float(), k[i].float().transpose(0, 1))
-        s = torch.clamp(s + bias[i], max=_NOMAX_CLAMP)
+        s = s + bias[i]
+        if clamp:
+            s = torch.clamp(s, max=_NOMAX_CLAMP)
         p = torch.exp2(s - lse[i].transpose(0, 1))
         if use_valid:
             p = p * valid[i]
@@ -170,7 +209,15 @@ _ENTRIES = {
                         [_ptr] * 5 + [_int] * 6 + [_float, _ptr]),
     "flash_fwd_nomax_lse": ("flash_fwd_nomax",
                             [_ptr] * 6 + [_int] * 6 + [_float, _ptr]),
-    "flash_bwd": ("flash_bwd", [_ptr] * 10 + [_int] * 6 + [_float] * 2
+    "flash_fwd_online": ("flash_fwd_online",
+                         [_ptr] * 6 + [_int] * 6 + [_float, _ptr]),
+    "flash_fwd_online_exp": ("flash_fwd_online", [_ptr] * 6 + [_int] * 4
+                             + [_ptr]),
+    "flash_fwd_online_bf16": ("flash_fwd_online", [_ptr] * 6 + [_int] * 4
+                              + [_ptr]),
+    "flash_fwd_nomax65": ("flash_fwd_nomax65", [_ptr] * 4 + [_int] * 4
+                          + [_ptr]),
+    "flash_bwd": ("flash_bwd", [_ptr] * 10 + [_int] * 7 + [_float] * 2
                   + [_ptr]),
 }
 
@@ -202,14 +249,16 @@ def _on_card(q: torch.Tensor) -> bool:
     return True
 
 
-def _check_layout(name: str, t: torch.Tensor, device: torch.device) -> None:
+def _check_layout(name: str, t: torch.Tensor, device: torch.device,
+                  align: int = 16) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, q on {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
+    if t.data_ptr() % align:
         # the kernels read rows with 16-byte vector loads and cp.async
-        raise ValueError(f"{name} must start on a 16-byte boundary")
+        # (K6's 130-byte q65 / k65 rows with 2-byte loads)
+        raise ValueError(f"{name} must start on a {align}-byte boundary")
 
 
 def _check(q, k, v, bias) -> None:
@@ -280,19 +329,45 @@ def flash_fwd_nomax_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_fwd_nomax_lse.launches = 0
 
 
+def flash_fwd_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor, scale: float, use_valid: bool = True
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3: masked attention forward with an online max; returns (o, lse
+    [B, 1, Lq] f32 = m + log2(max(l, 1e-30))). CPU tensors run the plain
+    version; CUDA tensors launch the kernel."""
+    if not _on_card(q):
+        return flash_fwd_online_reference(q, k, v, bias, scale, use_valid)
+    _check(q, k, v, bias)
+    b, lq, c = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(b, 1, lq, device=q.device)
+    _launch("flash_fwd_online", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), bias.data_ptr(), o.data_ptr(), lse.data_ptr(), b,
+            lq, k.shape[1], c, int(q.dtype == torch.bfloat16),
+            int(use_valid), weak_scalar(scale * _LOG2E, q.dtype))
+    flash_fwd_online.launches += 1
+    return o, lse
+
+
+flash_fwd_online.launches = 0
+
+
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               bias: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
-              do: torch.Tensor, scale: float, use_valid: bool = True
+              do: torch.Tensor, scale: float, use_valid: bool = True,
+              clamp: bool = True
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K4: the merged backward of `flash_fwd_nomax_lse` (o, lse its
-    outputs, do the gradient of o); returns (dq, dk, dv) in q's, k's and
-    v's dtypes. delta = sum(do * o) is computed here with torch ops, as
-    JAX does in XLA. dq accumulates in f32 with atomics in the kernel, so
-    its last bits vary from run to run. CPU tensors run the plain version;
-    CUDA tensors launch the kernel."""
+    """K4: the merged backward of `flash_fwd_nomax_lse` (`clamp`: scores
+    clamped at 60 as that forward did) or of `flash_fwd_online` (`clamp`
+    False: its lse holds the row max and may exceed 60); o, lse are the
+    forward's outputs, do the gradient of o. Returns (dq, dk, dv) in q's,
+    k's and v's dtypes. delta = sum(do * o) is computed here with torch
+    ops, as JAX does in XLA. dq accumulates in f32 with atomics in the
+    kernel, so its last bits vary from run to run. CPU tensors run the
+    plain version; CUDA tensors launch the kernel."""
     if not _on_card(q):
         return flash_bwd_reference(q, k, v, bias, o, lse, do, scale,
-                                   use_valid)
+                                   use_valid, clamp)
     _check(q, k, v, bias)
     b, lq, c = q.shape
     for name, t in (("o", o), ("do", do)):
@@ -310,7 +385,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch("flash_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, lq, k.shape[1], c,
-            int(q.dtype == torch.bfloat16), int(use_valid),
+            int(q.dtype == torch.bfloat16), int(use_valid), int(clamp),
             weak_scalar(scale * _LOG2E, q.dtype), float(scale))
     flash_bwd.launches += 1
     return dq.to(q.dtype), dk, dv

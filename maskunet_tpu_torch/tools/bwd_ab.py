@@ -144,7 +144,7 @@ def main() -> int:
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, lq,
-                 k.shape[1], c, 1, 0, qmul, 1.0,
+                 k.shape[1], c, 1, 0, 1, qmul, 1.0,
                  torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"flash_bwd variant: CUDA error {err}")
