@@ -7,15 +7,20 @@ Phases (each prints JSON lines; any failure exits non-zero and prints no
 final result):
 
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
-   versions, and the build of both kernel libraries from
-   maskunet_tpu_torch/csrc (seconds, ptxas registers and spills).
+   versions, the build of the kernel libraries from
+   maskunet_tpu_torch/csrc (seconds, ptxas registers and spills; those of
+   K4's wgmma instantiations named, and 0 spill bytes required), and the
+   body K4 runs in bf16 at each C (wgmma or mma_sync).
 2. kernel: K1 `flash_fwd_nomax` against its plain PyTorch version at the
    six serving attention shapes (batch 8, 128x128 images) in bf16 and f32,
    plus a ragged shape, a fully-masked row (must give 0) and a NaN-poisoned
    K row (must give NaN).
 3. kernel_lse, kernel_bwd: K2 `flash_fwd_nomax_lse` (o and lse) and K4
    `flash_bwd` (dq, dk, dv) against their plain versions at the same
-   shapes and cases, both dtypes.
+   shapes and cases, both dtypes; K4 also, at each C its wgmma body takes,
+   at shapes whose Lq is no multiple of the 64-query step (or below it)
+   and whose Lk is no multiple of the key tile, batch 2-3: the edges of
+   its TMA maps and dQ reduction.
 4. serving: `serve.build_model_runner` on the ADE model (c_out 150, 128x128,
    batch 8, bf16, random weights from the recipe seed) behind the serving
    micro-batcher; 16 requests from 4 threads, each answer equal to a direct
@@ -35,12 +40,13 @@ final result):
    steps keep the loss finite and lower it.
 7. train times: ms per step and img/s, a device profile of 3 steps, and per
    attention shape K2 and K4 against their plain versions, their bounds and
-   the library's forward and backward.
+   the library's forward and backward (K4's lines name its body).
 8. kernel_online, kernel_bwd_noclamp: K3 `flash_fwd_online` (o and lse)
    and K4 with `clamp=False` on K3's lse against their plain versions at
    the same shapes and cases, both dtypes, plus a fully-masked row without
    use_valid (K3 gives the mean of V) and exact scores far past the clamp
-   at 60 (where K4 clamped and unclamped must differ).
+   at 60 (where K4 clamped and unclamped must differ), and K4's edge
+   shapes.
 9. safe_serving, safe_train: the same serving and training paths with the
    safe softmax on (`flash_attention._SAFE_SOFTMAX`, what
    MASKUNET_SAFE_SOFTMAX=1 sets): a forward launches K3 6 times and K1
@@ -209,6 +215,16 @@ def device_kernel_rows(prof) -> list:
     return sorted(rows, reverse=True)
 
 
+def wgmma_ptxas(log: str) -> list:
+    """(function, stack/spill line, registers line) of each of K4's wgmma
+    instantiations in ptxas's report."""
+    lines = log.splitlines()
+    return [[ln.strip().rsplit(" ", 1)[-1], lines[i + 1].strip(),
+             lines[i + 2].strip()]
+            for i, ln in enumerate(lines[:-2])
+            if "Function properties" in ln and "bwd_wgmma" in ln]
+
+
 def phase_device() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -227,6 +243,16 @@ def phase_device() -> str:
              name for name, info in builds.items()
              if any("spill" in ln and "0 bytes spill stores, 0 bytes spill "
                     "loads" not in ln for ln in info["log"].splitlines())])
+    k4 = wgmma_ptxas(builds["flash_bwd"]["log"])
+    bodies = {c: fk.flash_bwd_body(c, torch.bfloat16)
+              for c in fk.KERNEL_CHANNELS}
+    emit(phase="device_k4", k4_bodies_bf16=bodies, wgmma_ptxas=k4)
+    check(len(k4) == 4 * len(fk.BWD_WGMMA_CHANNELS) and all(
+        "0 bytes spill stores, 0 bytes spill loads" in ln for _, ln, _ in k4),
+        f"K4's wgmma instantiations (4 a C) built without spills: {k4}")
+    check(all((b == "wgmma") == (c in fk.BWD_WGMMA_CHANNELS)
+              for c, b in bodies.items()),
+          f"K4 runs wgmma at C in {fk.BWD_WGMMA_CHANNELS}: {bodies}")
     return card
 
 
@@ -269,6 +295,27 @@ def kernel_cases(gen, dtype):
     poisoned = k.clone()
     poisoned[1] = float("nan")
     yield "nan_poisoned_k", q, poisoned, v, bias, False, "nan"
+
+
+# (batch, Lq, Lk, use_valid) of K4's edge shapes: Lq past a multiple of
+# the 64-query step or below it, Lk past a multiple of the key tile (192
+# keys at C 64, 128 at C 128) or below it
+BWD_EDGES = ((3, 200, 150, True), (3, 37, 200, False), (3, 50, 700, True),
+             (2, 1000, 300, False), (3, 64, 40, True))
+
+
+def bwd_edge_cases(gen, dtype):
+    """`kernel_cases`' tuples for K4's edge shapes (BWD_EDGES) at each C
+    whose bf16 backward runs the wgmma body."""
+    for c in fk.BWD_WGMMA_CHANNELS:
+        for b, lq, lk, uv in BWD_EDGES:
+            q = (torch.randn(b, lq, c, generator=gen, device="cuda")
+                 * c ** -0.5).to(dtype)
+            k, v = (torch.randn(b, lk, c, generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            bias = fa.mask_to_bias(torch.rand(b, lk, generator=gen,
+                                              device="cuda") < 0.5, b, lk)
+            yield f"edge_c{c}_b{b}_q{lq}_k{lk}", q, k, v, bias, uv, None
 
 
 def row1_as_expected(out: torch.Tensor, row1) -> bool:
@@ -328,7 +375,8 @@ def phase_kernel_bwd() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for name, q, k, v, bias, uv, row1 in kernel_cases(gen, dtype):
+        for name, q, k, v, bias, uv, row1 in (*kernel_cases(gen, dtype),
+                                              *bwd_edge_cases(gen, dtype)):
             do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
             o, lse = fk.flash_fwd_nomax_reference(q, k, v, bias, 1.0, uv,
                                                   with_lse=True)
@@ -411,7 +459,9 @@ def phase_kernel_bwd_noclamp() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(6)
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for name, q, k, v, bias, uv, row1, scale in online_cases(gen, dtype):
+        cases = (*online_cases(gen, dtype),
+                 *((*case, 1.0) for case in bwd_edge_cases(gen, dtype)))
+        for name, q, k, v, bias, uv, row1, scale in cases:
             do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
             o, lse = fk.flash_fwd_online_reference(q, k, v, bias, scale, uv)
             got = fk.flash_bwd(q, k, v, bias, o, lse, do, scale, uv,
@@ -823,9 +873,14 @@ def bwd_bound_ms(q, k, bias) -> tuple[float, float]:
     return nbytes / PEAK["bytes"] * 1e3, t_ops * 1e3
 
 
+# K4's kernels in a profile, whichever body ran (bwd_wgmma, bwd_bf16,
+# bwd_f32)
+K4_TAG = "namespace)::bwd_"
+
+
 def phase_train_time(card: str, train: dict) -> dict:
     train_wall_and_profile(card, train, "", {"k2_share": "fwd_nomax",
-                                             "k4_share": "bwd_bf16"})
+                                             "k4_share": K4_TAG})
     gen = torch.Generator(device="cuda").manual_seed(4)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms")
     totals = {"K2": dict.fromkeys(keys, 0.0), "K4": dict.fromkeys(keys, 0.0)}
@@ -856,6 +911,7 @@ def phase_train_time(card: str, train: dict) -> dict:
                "library_ms": device_ms(lambda: torch.autograd.grad(
                    lib_out, (q4, k4, v4), do4, retain_graph=True), iters=10),
                "bytes_ms": t_bytes, "ops_ms": t_ops}
+        bwd["body"] = fk.flash_bwd_body(c, torch.bfloat16)
         for kname, row in (("K2", fwd), ("K4", bwd)):
             row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
             row["bound_by"] = ("bytes" if row["bytes_ms"] > row["ops_ms"]
@@ -883,7 +939,7 @@ def phase_safe(card: str) -> dict:
         train = phase_train(card, safe=True)
         train_wall_and_profile(card, train, "safe_",
                                {"k3_share": "fwd_online",
-                                "k4_share": "bwd_bf16"})
+                                "k4_share": K4_TAG})
     finally:
         fa._SAFE_SOFTMAX = False
     return {"K3": serving["launches"] + train["launches"]["K3"],
@@ -982,8 +1038,8 @@ def phase_tools(card: str) -> dict:
     return out
 
 
-def kernel_entry(name, source, replaces, launches, err, t) -> dict:
-    return {"name": name, "route": "cuda", "source": source,
+def kernel_entry(name, source, replaces, launches, err, t, **extra) -> dict:
+    return {**extra, "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
@@ -1041,7 +1097,9 @@ def main() -> int:
                      train["launches"]["K4"] + safe["K4"],
                      max(kernel_bwd["max_abs_err"],
                          kernel_bwd_noclamp["max_abs_err"]),
-                     train_totals["K4"]),
+                     train_totals["K4"],
+                     bodies_bf16={str(c): fk.flash_bwd_body(c, torch.bfloat16)
+                                  for c in fk.KERNEL_CHANNELS}),
         kernel_entry("old_flash_fwd", online_src, "tools/softmax_ab.py:29",
                      tools["K5"]["launches"], tools["K5"]["max_abs_err"],
                      tools["K5"]),

@@ -219,6 +219,7 @@ _ENTRIES = {
                           + [_ptr]),
     "flash_bwd": ("flash_bwd", [_ptr] * 10 + [_int] * 7 + [_float] * 2
                   + [_ptr]),
+    "flash_bwd_body": ("flash_bwd", [_int]),
 }
 
 
@@ -230,6 +231,20 @@ def _entry(name: str):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+# Channels whose bf16 K4 runs the wgmma body (`wgmma_body` in
+# csrc/flash_bwd.cu; `flash_bwd_body` reads the library's own answer).
+BWD_WGMMA_CHANNELS = (64, 128)
+_BODIES = {2: "wgmma", 1: "mma_sync"}
+
+
+def flash_bwd_body(c: int, dtype: torch.dtype) -> str:
+    """The body K4 runs at `c` channels in `dtype` on the card: "wgmma",
+    "mma_sync" (bf16) or "fma" (f32); asks the built library."""
+    if dtype == torch.float32:
+        return "fma"
+    return _BODIES[_entry("flash_bwd_body")(c)]
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -352,6 +367,19 @@ def flash_fwd_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_fwd_online.launches = 0
 
 
+def _check_bwd_grid(b: int, lq: int, c: int, dtype: torch.dtype) -> None:
+    """What K4's launch cannot take: more batch rows than a grid's y
+    dimension (65,535), and for the wgmma body more than 2^31 - 1 query
+    rows in all, since its lse and delta maps run over B * Lq with int32
+    coordinates."""
+    if b > 65535:
+        raise ValueError(f"flash_bwd takes at most 65535 batch rows, got {b}")
+    if (dtype == torch.bfloat16 and c in BWD_WGMMA_CHANNELS
+            and b * lq >= 2 ** 31):
+        raise ValueError(f"flash_bwd's wgmma body takes B * Lq < 2^31, got "
+                         f"{b} x {lq}")
+
+
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               bias: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
               do: torch.Tensor, scale: float, use_valid: bool = True,
@@ -362,9 +390,10 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     False: its lse holds the row max and may exceed 60); o, lse are the
     forward's outputs, do the gradient of o. Returns (dq, dk, dv) in q's,
     k's and v's dtypes. delta = sum(do * o) is computed here with torch
-    ops, as JAX does in XLA. dq accumulates in f32 with atomics in the
-    kernel, so its last bits vary from run to run. CPU tensors run the
-    plain version; CUDA tensors launch the kernel."""
+    ops, as JAX does in XLA. dq accumulates in f32 by bulk reductions
+    (bf16 at C = 64 and 128) or atomics in the kernel, so its last bits vary from
+    run to run. CPU tensors run the plain version; CUDA tensors launch the
+    kernel, or raise ValueError for what it cannot take."""
     if not _on_card(q):
         return flash_bwd_reference(q, k, v, bias, o, lse, do, scale,
                                    use_valid, clamp)
@@ -379,6 +408,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"lse must be f32 [{b}, 1, {lq}], got {lse.dtype} "
                          f"{tuple(lse.shape)}")
     _check_layout("lse", lse, q.device)
+    _check_bwd_grid(b, lq, c, q.dtype)
     delta = _delta(o, do)
     dq = torch.zeros(b, lq, c, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)

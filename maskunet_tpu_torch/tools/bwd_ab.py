@@ -9,15 +9,18 @@ does.
 
     python -m maskunet_tpu_torch.tools.bwd_ab [--rounds 2]
 
-Variants:
-  source          the committed kernel (dQ by float2 atomicAdd)
-  scalar_atomics  dQ by one f32 atomicAdd per channel
-  no_atomics      dQ computed but never added (wrong dQ: timing only)
-  bq32            32 queries a step at C = 64 (half the S^T/dP^T registers)
-  bq32_2blocks    bq32 with __launch_bounds__(256, 2): two blocks an SM
+Variants (C = 64 runs the wgmma body unless named otherwise):
+  source     the committed kernel (wgmma, three warpgroups of 64 keys a
+             block, a three-stage TMA ring, dQ by bulk tensor reduction)
+  mma_sync   the mma.sync body the source keeps for C = 256, at C = 64
+             (and 128) too: PR 3's kernel, in the same run
+  atomics    dQ by float2 f32 atomicAdd instead of the bulk reduction
+  stages2    a two-stage q / dO ring
+  wg1        one warpgroup (64 keys) a block, two blocks an SM
+  wg2        two warpgroups (128 keys) a block
 
 It prints one JSON line per variant built (ptxas's registers and spills
-of the C = 64 instantiations) and per variant timed.
+of the C = 64 bf16 instantiations) and per variant timed.
 """
 
 from __future__ import annotations
@@ -32,29 +35,46 @@ import torch
 from maskunet_tpu_torch.ops import flash_attention as fa
 from maskunet_tpu_torch.ops import flash_kernels as fk
 
-_FLOAT2 = """\
-        if (r0 < lq)
-          atomicAdd(reinterpret_cast<float2*>(dqb + size_t(r0) * C + col),
-                    make_float2(scale * dqa[n][0], scale * dqa[n][1]));
-        if (r1 < lq)
-          atomicAdd(reinterpret_cast<float2*>(dqb + size_t(r1) * C + col),
-                    make_float2(scale * dqa[n][2], scale * dqa[n][3]));"""
-_SCALAR = """\
-        if (r0 < lq) {
-          atomicAdd(dqb + size_t(r0) * C + col, scale * dqa[n][0]);
-          atomicAdd(dqb + size_t(r0) * C + col + 1, scale * dqa[n][1]);
-        }
-        if (r1 < lq) {
-          atomicAdd(dqb + size_t(r1) * C + col, scale * dqa[n][2]);
-          atomicAdd(dqb + size_t(r1) * C + col + 1, scale * dqa[n][3]);
-        }"""
-# a store that never runs but keeps the dQ products alive
-_NONE = ("        if (r0 < 0) dqb[col] = dqa[n][0] + dqa[n][1] + dqa[n][2]"
-         " + dqa[n][3];")
-_BQ = "    constexpr int BQ = C == 64 ? 64 : 32;"
-_BQ32 = "    constexpr int BQ = 32;"
-_BOUNDS = "__global__ void __launch_bounds__(32 * KW * CS, 1)"
-_BOUNDS2 = "__global__ void __launch_bounds__(32 * KW * CS, C == 64 ? 2 : 1)"
+_WGMMA_C = ("constexpr bool wgmma_body(int c) "
+            "{ return c == 64 || c == 128; }")
+_NO_WGMMA = "constexpr bool wgmma_body(int c) { return false; }"
+_ADD = """\
+  if (lane == 0) bulk_wait_read();  // this warp's last add read its rows
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    unsigned char* half = dqw + (j >> 2) * kTile;
+    const int c16 = 2 * (j & 3) + (tq4 >> 1);  // 16-byte chunk
+    const int off = ((c16 ^ sw) << 4) + 8 * (tq4 & 1);
+    *reinterpret_cast<float2*>(half + r0 * 128 + off) =
+        make_float2(scale * dqa[4 * j], scale * dqa[4 * j + 1]);
+    *reinterpret_cast<float2*>(half + (r0 + 8) * 128 + off) =
+        make_float2(scale * dqa[4 * j + 2], scale * dqa[4 * j + 3]);
+  }
+  fence_async_smem();
+  __syncwarp();
+  if (lane == 0) {
+    const int w16 = r0 - (r0 & 15);  // this warp's first row
+    tma_reduce_add_3d(tdq, dqw + w16 * 128, c0, q0 + w16, b);
+    tma_reduce_add_3d(tdq, dqw + kTile + w16 * 128, c0 + 32, q0 + w16, b);
+    bulk_commit();
+  }
+"""
+_ADD_ATOMICS = """\
+  float* row = dq + (size_t(b) * lq + q0 + r0) * ldc + c0 + 2 * tq4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (q0 + r0 < lq)
+      atomicAdd(reinterpret_cast<float2*>(row + 8 * j),
+                make_float2(scale * dqa[4 * j], scale * dqa[4 * j + 1]));
+    if (q0 + r0 + 8 < lq)
+      atomicAdd(reinterpret_cast<float2*>(row + 8 * ldc + 8 * j),
+                make_float2(scale * dqa[4 * j + 2], scale * dqa[4 * j + 3]));
+  }
+"""
+_STAGES = "constexpr int kStages = 3;"
+_STAGES2 = "constexpr int kStages = 2;"
+_WGS = "constexpr int kWarpgroups = 3;"
 
 
 def _sub(text: str, *pairs: tuple[str, str]) -> str:
@@ -68,10 +88,11 @@ def _sub(text: str, *pairs: tuple[str, str]) -> str:
 def variants(src: str) -> dict[str, str]:
     """{name: CUDA source} of the variants of the module docstring."""
     return {"source": _sub(src),
-            "scalar_atomics": _sub(src, (_FLOAT2, _SCALAR)),
-            "no_atomics": _sub(src, (_FLOAT2, _NONE)),
-            "bq32": _sub(src, (_BQ, _BQ32)),
-            "bq32_2blocks": _sub(src, (_BQ, _BQ32), (_BOUNDS, _BOUNDS2))}
+            "mma_sync": _sub(src, (_WGMMA_C, _NO_WGMMA)),
+            "atomics": _sub(src, (_ADD, _ADD_ATOMICS)),
+            "stages2": _sub(src, (_STAGES, _STAGES2)),
+            "wg1": _sub(src, (_WGS, _WGS.replace("3", "1"))),
+            "wg2": _sub(src, (_WGS, _WGS.replace("3", "2")))}
 
 
 def _build(texts: dict[str, str]) -> dict:
@@ -94,7 +115,8 @@ def _build(texts: dict[str, str]) -> dict:
         lines = log.splitlines()
         ptxas = [" | ".join(ln.strip() for ln in lines[i + 1:i + 3])
                  for i, ln in enumerate(lines)
-                 if "Function properties" in ln and "bwd_bf16ILi64E" in ln]
+                 if "Function properties" in ln
+                 and ("bwd_wgmmaILi64E" in ln or "bwd_bf16ILi64E" in ln)]
         fn = ctypes.CDLL(str(out_dir / f"{name}.so")).flash_bwd
         fn.argtypes = fk._ENTRIES["flash_bwd"][1]
         fn.restype = ctypes.c_int

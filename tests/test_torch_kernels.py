@@ -227,15 +227,56 @@ def test_tool_wrappers_take_bf16_at_c64_only():
 
 def test_bwd_ab_variants_apply_to_the_kernel_source():
     """Every K4 variant of the A/B tool is one substitution of the
-    committed source away, so the tool measures what it names."""
+    committed source away, so the tool measures what it names: the
+    mma.sync body at C 64, dQ by atomics, a shallower ring, one or two
+    warpgroups a block."""
     from maskunet_tpu_torch.tools import bwd_ab
     src = tk.SOURCES["flash_bwd"].read_text()
     texts = bwd_ab.variants(src)
+    assert set(texts) == {"source", "mma_sync", "atomics", "stages2", "wg1",
+                          "wg2"}
     assert texts["source"] == src
     assert len(set(texts.values())) == len(texts)
-    assert "atomicAdd(reinterpret_cast<float2*>" not in texts["scalar_atomics"]
-    with pytest.raises(ValueError, match="no longer holds"):
-        bwd_ab.variants(src.replace(bwd_ab._BQ, ""))
+    assert "tma_reduce_add_3d(tdq" in src
+    assert (texts["atomics"].count("atomicAdd(")
+            == src.count("atomicAdd(") + 2)
+    assert "tma_reduce_add_3d(tdq" not in texts["atomics"]
+    assert "return false;" in texts["mma_sync"]
+    for name, old in (("stages2", bwd_ab._STAGES), ("wg1", bwd_ab._WGS),
+                      ("wg2", bwd_ab._WGS)):
+        assert old not in texts[name]
+        with pytest.raises(ValueError, match="no longer holds"):
+            bwd_ab.variants(src.replace(old, ""))
+
+
+def test_backward_body_channels_match_the_kernel_source():
+    """The wrapper's list of wgmma channels is the source's own."""
+    src = tk.SOURCES["flash_bwd"].read_text()
+    want = " || ".join(f"c == {c}" for c in tk.BWD_WGMMA_CHANNELS)
+    assert f"constexpr bool wgmma_body(int c) {{ return {want}; }}" in src
+
+
+@pytest.mark.parametrize("shape", [(65536, 8, 8), (2, 2 ** 30, 8)])
+def test_backward_wrapper_refuses_what_its_launch_cannot_take(shape,
+                                                             monkeypatch):
+    """A tensor taken for the card whose shape the launch cannot take (a
+    grid of more than 65,535 batch rows; for the wgmma body, B * Lq past
+    int32) raises ValueError before anything is launched or computed."""
+    b, lq, lk = shape
+    q = torch.empty(b, lq, 64, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(b, lk, 64, dtype=torch.bfloat16, device="meta")
+    bias = torch.empty(b, 1, lk, device="meta")
+    lse = torch.empty(b, 1, lq, device="meta")
+    monkeypatch.setattr(tk, "_on_card", lambda t: True)
+
+    def no_launch(name, *args):
+        raise AssertionError(f"{name} launched")
+
+    monkeypatch.setattr(tk, "_launch", no_launch)
+    before = tk.flash_bwd.launches
+    with pytest.raises(ValueError, match="flash_bwd"):
+        tk.flash_bwd(q, k, k, bias, q, lse, q, 1.0)
+    assert tk.flash_bwd.launches == before
 
 
 @pytest.fixture
@@ -308,6 +349,40 @@ def test_backward_kernel_matches_plain_version_on_card(cuda, c):
                 assert torch.isnan(got[0][1]).all()
             else:
                 assert bool((got[0][1] == 0).all())
+
+
+# (batch, Lq, Lk) where K4's tiles meet ragged edges: Lq past a multiple
+# of the 64-query step or below it, Lk past a multiple of the key tile
+# (192 keys at C 64, 128 at C 128) or below it
+_BWD_EDGES = [(3, 200, 150), (3, 37, 200), (3, 50, 700), (2, 1000, 300),
+              (3, 64, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 128])
+@pytest.mark.parametrize("edge", _BWD_EDGES)
+def test_backward_kernel_at_ragged_edges_on_card(cuda, c, edge):
+    """K4 against its plain version where its TMA boxes and dQ reduction
+    meet the edges of Lq, Lk and the batch; clamped and not, both dtypes."""
+    b, lq, lk = edge
+    g = torch.Generator().manual_seed(lq + lk)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn(b, n, c, generator=g).to(cuda, dtype)
+                       for n in (lq, lk, lk, lq))
+        bias = tfa.mask_to_bias(torch.rand(b, lk, generator=g) < 0.5, b,
+                                lk).to(cuda)
+        for use_valid, clamp in ((True, True), (False, False)):
+            fwd = (tk.flash_fwd_nomax_reference if clamp
+                   else tk.flash_fwd_online_reference)
+            o, lse = fwd(q, k, v, bias, c ** -0.5, use_valid,
+                         **({"with_lse": True} if clamp else {}))
+            got = tk.flash_bwd(q, k, v, bias, o, lse, do, c ** -0.5,
+                               use_valid, clamp=clamp)
+            torch.cuda.synchronize()
+            want = tk.flash_bwd_reference(q, k, v, bias, o, lse, do,
+                                          c ** -0.5, use_valid, clamp=clamp)
+            for gt, w in zip(got, want):
+                _agrees(gt, w)
 
 
 @pytest.mark.cuda
