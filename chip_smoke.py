@@ -9,15 +9,20 @@ final result):
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions, the build of the kernel libraries from
    maskunet_tpu_torch/csrc (seconds, ptxas registers and spills; those of
-   K4's wgmma instantiations named, and 0 spill bytes required), and the
-   body K4 runs in bf16 at each C (wgmma or mma_sync).
+   K4's and of K1/K2's wgmma instantiations named, and 0 spill bytes
+   required: phases device_k4 and device_k1), and the body K4 and K1/K2
+   run in bf16 at each C (wgmma or mma_sync).
 2. kernel: K1 `flash_fwd_nomax` against its plain PyTorch version at the
    six serving attention shapes (batch 8, 128x128 images) in bf16 and f32,
    plus a ragged shape, a fully-masked row (must give 0) and a NaN-poisoned
-   K row (must give NaN).
-3. kernel_lse, kernel_bwd: K2 `flash_fwd_nomax_lse` (o and lse) and K4
-   `flash_bwd` (dq, dk, dv) against their plain versions at the same
-   shapes and cases, both dtypes; K4 also, at each C its wgmma body takes,
+   K row (must give NaN); in bf16 also, at each C its wgmma body takes,
+   with and without use_valid, at shapes whose Lq is no multiple of the
+   128-query block (or below it) and whose Lk is no multiple of the
+   128-key step, batch 2-3: the edges of its TMA maps and store.
+3. kernel_lse, kernel_bwd: K2 `flash_fwd_nomax_lse` (o and lse, K1's
+   cases) and K4 `flash_bwd` (dq, dk, dv) against their plain versions at
+   the same shapes and cases, both dtypes; K4 also, at each C its wgmma
+   body takes,
    at shapes whose Lq is no multiple of the 64-query step (or below it)
    and whose Lk is no multiple of the key tile, batch 2-3: the edges of
    its TMA maps and dQ reduction.
@@ -27,9 +32,9 @@ final result):
    runner call; the kernel must launch 6 times per forward; the model's
    logits on the kernel agree with the logits on its plain version.
 5. serving times: the serving forward (ms per batch, img/s), a device
-   profile of it, and per attention shape K1, its plain version, the
-   PyTorch library call computing the same function (timed only) and the
-   bound.
+   profile of it, and per attention shape K1 (its body named), its plain
+   version, the PyTorch library call computing the same function (timed
+   only) and the bound.
 6. train: the ADE training step (c_out 150, 128x128, batch 8, bf16, recipe
    seed 42, AdamW lr 5e-5 and weight decay 0.1, the recipe's cached masks
    with precomputed plans) on a fixed synthetic batch: one step launches
@@ -40,7 +45,8 @@ final result):
    steps keep the loss finite and lower it.
 7. train times: ms per step and img/s, a device profile of 3 steps, and per
    attention shape K2 and K4 against their plain versions, their bounds and
-   the library's forward and backward (K4's lines name its body).
+   the library's forward and backward (each line names the kernel's
+   body).
 8. kernel_online, kernel_bwd_noclamp: K3 `flash_fwd_online` (o and lse)
    and K4 with `clamp=False` on K3's lse against their plain versions at
    the same shapes and cases, both dtypes, plus a fully-masked row without
@@ -215,14 +221,34 @@ def device_kernel_rows(prof) -> list:
     return sorted(rows, reverse=True)
 
 
-def wgmma_ptxas(log: str) -> list:
-    """(function, stack/spill line, registers line) of each of K4's wgmma
-    instantiations in ptxas's report."""
+def wgmma_ptxas(log: str, kernel: str) -> list:
+    """(function, stack/spill line, registers line) of each instantiation
+    of the wgmma `kernel` (K4's `bwd_wgmma`, K1/K2's `fwd_nomax_wgmma`) in
+    ptxas's report."""
     lines = log.splitlines()
     return [[ln.strip().rsplit(" ", 1)[-1], lines[i + 1].strip(),
              lines[i + 2].strip()]
             for i, ln in enumerate(lines[:-2])
-            if "Function properties" in ln and "bwd_wgmma" in ln]
+            if "Function properties" in ln and kernel in ln]
+
+
+def phase_device_wgmma(phase: str, kname: str, log: str, kernel: str,
+                       body, channels, per_c: int) -> None:
+    """ptxas's registers and spills of each instantiation of a wgmma body
+    (`per_c` at each of its `channels`; 0 spill bytes required), and the
+    body `body(c, bf16)` names at each C, which must be wgmma exactly at
+    `channels`."""
+    found = wgmma_ptxas(log, kernel)
+    bodies = {c: body(c, torch.bfloat16) for c in fk.KERNEL_CHANNELS}
+    emit(phase=phase, **{f"{kname.lower()}_bodies_bf16": bodies},
+         wgmma_ptxas=found)
+    check(len(found) == per_c * len(channels) and all(
+        "0 bytes spill stores, 0 bytes spill loads" in ln
+        for _, ln, _ in found),
+        f"{kname}'s wgmma instantiations ({per_c} a C) built without "
+        f"spills: {found}")
+    check(all((b == "wgmma") == (c in channels) for c, b in bodies.items()),
+          f"{kname} runs wgmma at C in {channels}: {bodies}")
 
 
 def phase_device() -> str:
@@ -243,16 +269,13 @@ def phase_device() -> str:
              name for name, info in builds.items()
              if any("spill" in ln and "0 bytes spill stores, 0 bytes spill "
                     "loads" not in ln for ln in info["log"].splitlines())])
-    k4 = wgmma_ptxas(builds["flash_bwd"]["log"])
-    bodies = {c: fk.flash_bwd_body(c, torch.bfloat16)
-              for c in fk.KERNEL_CHANNELS}
-    emit(phase="device_k4", k4_bodies_bf16=bodies, wgmma_ptxas=k4)
-    check(len(k4) == 4 * len(fk.BWD_WGMMA_CHANNELS) and all(
-        "0 bytes spill stores, 0 bytes spill loads" in ln for _, ln, _ in k4),
-        f"K4's wgmma instantiations (4 a C) built without spills: {k4}")
-    check(all((b == "wgmma") == (c in fk.BWD_WGMMA_CHANNELS)
-              for c, b in bodies.items()),
-          f"K4 runs wgmma at C in {fk.BWD_WGMMA_CHANNELS}: {bodies}")
+    # K4: use_valid x clamp a C; K1/K2: use_valid a C
+    phase_device_wgmma("device_k4", "K4", builds["flash_bwd"]["log"],
+                       "bwd_wgmma", fk.flash_bwd_body, fk.BWD_WGMMA_CHANNELS,
+                       4)
+    phase_device_wgmma("device_k1", "K1", builds["flash_fwd_nomax"]["log"],
+                       "fwd_nomax_wgmma", fk.flash_fwd_nomax_body,
+                       fk.FWD_WGMMA_CHANNELS, 2)
     return card
 
 
@@ -318,6 +341,37 @@ def bwd_edge_cases(gen, dtype):
             yield f"edge_c{c}_b{b}_q{lq}_k{lk}", q, k, v, bias, uv, None
 
 
+# (batch, Lq, Lk) of K1's and K2's edge shapes: Lq past a multiple of the
+# 128-query block or below it, Lk past a multiple of the 128-key step or
+# below it
+FWD_EDGES = ((3, 200, 150), (3, 37, 200), (3, 50, 700), (2, 1000, 300),
+             (3, 64, 40), (3, 129, 129))
+
+
+def fwd_edge_cases(gen):
+    """`kernel_cases`' tuples for K1's and K2's edge shapes (FWD_EDGES),
+    bf16, with and without use_valid, at each C whose bf16 forward runs
+    the wgmma body."""
+    for c in fk.FWD_WGMMA_CHANNELS:
+        for b, lq, lk in FWD_EDGES:
+            q = (torch.randn(b, lq, c, generator=gen, device="cuda")
+                 * c ** -0.5).bfloat16()
+            k, v = (torch.randn(b, lk, c, generator=gen,
+                                device="cuda").bfloat16() for _ in range(2))
+            bias = fa.mask_to_bias(torch.rand(b, lk, generator=gen,
+                                              device="cuda") < 0.5, b, lk)
+            for uv in (True, False):
+                yield (f"edge_c{c}_b{b}_q{lq}_k{lk}", q, k, v, bias, uv,
+                       None)
+
+
+def forward_cases(gen, dtype):
+    """K1's and K2's cases: `kernel_cases`, and in bf16 the edge shapes."""
+    yield from kernel_cases(gen, dtype)
+    if dtype == torch.bfloat16:
+        yield from fwd_edge_cases(gen)
+
+
 def row1_as_expected(out: torch.Tensor, row1) -> bool:
     """A fully-masked row gives exact zeros, a NaN-poisoned one NaN (and
     row 0 stays finite)."""
@@ -343,7 +397,7 @@ def phase_kernel() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for name, q, k, v, bias, uv, row1 in kernel_cases(gen, dtype):
+        for name, q, k, v, bias, uv, row1 in forward_cases(gen, dtype):
             got = fk.flash_fwd_nomax(q, k, v, bias, 1.0, uv)
             torch.cuda.synchronize()
             a = agreement(got, fk.flash_fwd_nomax_reference(q, k, v, bias,
@@ -358,7 +412,7 @@ def phase_kernel_lse() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for name, q, k, v, bias, uv, row1 in kernel_cases(gen, dtype):
+        for name, q, k, v, bias, uv, row1 in forward_cases(gen, dtype):
             o, lse = fk.flash_fwd_nomax_lse(q, k, v, bias, 1.0, uv)
             torch.cuda.synchronize()
             want_o, want_lse = fk.flash_fwd_nomax_reference(
@@ -615,17 +669,19 @@ def phase_times(card: str, serving: dict) -> dict:
                            np.stack(serving["images"][:BATCH]), "",
                            "fwd_nomax")
     totals = forward_shape_times(card, "attn_time", fk.flash_fwd_nomax,
-                                 fk.flash_fwd_nomax_reference, seed=1)
+                                 fk.flash_fwd_nomax_reference, seed=1,
+                                 body=fk.flash_fwd_nomax_body)
     totals["launches"] = serving["launches"]
     return totals
 
 
 def forward_shape_times(card: str, phase: str, kernel, plain,
-                        seed: int, lse: bool = False) -> dict:
+                        seed: int, lse: bool = False, body=None) -> dict:
     """Per serving attention shape, bf16: the forward `kernel` and its
     `plain` version (both called (q, k, v, bias, 1.0, use_valid)), the
     library's SDPA with the same additive mask, and the bound (plus the
-    lse bytes when `lse`). Returns the sums over the six shapes."""
+    lse bytes when `lse`); `body(c, dtype)` names the kernel's body on
+    each line. Returns the sums over the six shapes."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
               "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
@@ -642,10 +698,11 @@ def forward_shape_times(card: str, phase: str, kernel, plain,
             t_bytes += 4 * BATCH * lq / PEAK["bytes"] * 1e3
         bnd = max(t_bytes, t_ops)
         by = "bytes" if t_bytes > t_ops else "operations"
+        extra = {} if body is None else {"body": body(c, torch.bfloat16)}
         emit(phase=phase, card=card, layer=name, lq=lq, lk=lk, c=c,
              batch=BATCH, dtype="bfloat16", use_valid=uv, ms=ms,
              plain_ms=plain_ms, library_ms=lib, bound_ms=bnd, bound_by=by,
-             share_of_bound=bnd / ms)
+             share_of_bound=bnd / ms, **extra)
         for key, val in (("ms", ms), ("plain_ms", plain_ms),
                          ("library_ms", lib), ("bound_ms", bnd),
                          ("bytes_ms", t_bytes), ("ops_ms", t_ops)):
@@ -911,6 +968,7 @@ def phase_train_time(card: str, train: dict) -> dict:
                "library_ms": device_ms(lambda: torch.autograd.grad(
                    lib_out, (q4, k4, v4), do4, retain_graph=True), iters=10),
                "bytes_ms": t_bytes, "ops_ms": t_ops}
+        fwd["body"] = fk.flash_fwd_nomax_body(c, torch.bfloat16)
         bwd["body"] = fk.flash_bwd_body(c, torch.bfloat16)
         for kname, row in (("K2", fwd), ("K4", bwd)):
             row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
@@ -1081,14 +1139,17 @@ def main() -> int:
     # (K5-K7)
     fwd_src = "maskunet_tpu_torch/csrc/flash_fwd_nomax.cu"
     online_src = "maskunet_tpu_torch/csrc/flash_fwd_online.cu"
+    fwd_bodies = {str(c): fk.flash_fwd_nomax_body(c, torch.bfloat16)
+                  for c in fk.KERNEL_CHANNELS}
     kernels = [
         kernel_entry("flash_fwd_nomax", fwd_src,
                      "maskunet_tpu/ops/flash_attention.py:164",
-                     totals["launches"], kernel["max_abs_err"], totals),
+                     totals["launches"], kernel["max_abs_err"], totals,
+                     bodies_bf16=fwd_bodies),
         kernel_entry("flash_fwd_nomax_lse", fwd_src,
                      "maskunet_tpu/ops/flash_attention.py:267",
                      train["launches"]["K2"], kernel_lse["max_abs_err"],
-                     train_totals["K2"]),
+                     train_totals["K2"], bodies_bf16=fwd_bodies),
         kernel_entry("flash_fwd_online", online_src,
                      "maskunet_tpu/ops/flash_attention.py:111",
                      safe["K3"], kernel_online["max_abs_err"], online_totals),

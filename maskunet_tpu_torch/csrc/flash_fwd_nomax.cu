@@ -19,27 +19,68 @@
 // What bounds it on an H100: at the serving shapes the two matrix products
 // are 4*B*Lq*Lk*C flops (309 GFLOP at attn6, ~0.31 ms at the 989 TF/s bf16
 // tensor-core peak) and the B*Lq*Lk exp2 take about as long on the special
-// function units; the bytes (q, k, v, o once each) are ~16 us. So it is
-// bound by operations, never by memory, and the design keeps everything of
-// size Lq x Lk on chip:
+// function units (16 a clock an SM: ~0.29 ms); the add, clamp, row sum and
+// bf16 pack are ~0.15 ms more of ALU issue. The bytes (q, k, v, o once
+// each) are ~16 us. So it is bound by operations, never by memory, and
+// every design keeps everything of size Lq x Lk on chip: one thread block
+// owns one (batch, query tile) and loops over all key tiles, holding the
+// f32 O accumulator and the row sums l in registers; O is written once;
+// the score fragments become the A operand of P.V in registers, so p never
+// touches shared or device memory. Three bodies:
 //
-//   * one thread block owns one (batch, query tile) and loops over all key
-//     tiles, holding the f32 O accumulator and the row sums l in registers;
-//     O is written once;
-//   * bf16 inputs use tensor cores through mma.sync m16n8k16 (16 query rows
-//     a warp; 8 warps at C = 64, 4 above); K and V tiles stream through a
-//     two-stage cp.async ring, so the next tile's loads overlap this tile's
-//     products, and ldmatrix reads them (.trans gives V's B operand without
-//     a transposing copy); the score fragments are reused in registers as
-//     the A operand of P.V, so p never touches shared or device memory;
-//   * f32 inputs stay exact f32 (no TF32) on plain FMA, 64x32 tiles;
-//   * ragged Lq / Lk are masked in the kernel (keys past Lk are zero-filled
-//     and get p = 0), so any length works.
+// bf16 at C = 64 and 128 (`fwd_nomax_wgmma`; attn1, attn4, attn5 and
+// attn6 of the model, 0.98 of the work): Hopper's warpgroup products, so
+// that both products can run at the tensor cores' full rate, fed by TMA
+// and mbarriers, with no block-wide barrier in the sweep.
 //
-// No TMA or wgmma yet: those come with the kernel's tuning.
-// Entry points: `flash_fwd_nomax` and `flash_fwd_nomax_lse` below (plain C,
-// bound with ctypes). The lse output costs one f32 store per query row.
+//   * Each warpgroup (4 warps) owns 64 queries; a block holds two (128
+//     queries). Per step of BK = 128 keys and warpgroup:
+//       S  = (q*qmul) K^T   wgmma m64n128k16, A = the q tile, B = the K
+//                           tile, both K-major from shared memory
+//       O += P V            wgmma m64n64k16, A = P packed to bf16 straight
+//                           from the S accumulator registers, B = the V
+//                           tile read MN-major (the transpose bit), one
+//                           product per 64 channels
+//     S and O stay f32 in registers (64 + 32 a thread at C = 64, 64 + 64
+//     at C = 128), so the softmax runs on the S registers.
+//   * K and V are read once a block, by TMA, not once a warp: thread 0
+//     streams them (3-D maps, box 64 channels x BK keys a region) through
+//     a ring of mbarrier-tracked stages (three at C = 64, two at C = 128:
+//     shared memory); each warp releases a stage on an `empty` mbarrier
+//     once its products have read it, and thread 0 then refills it. The q
+//     tile comes once by TMA and is scaled in place. Every tile is in the
+//     128-byte swizzle both TMA and the wgmma descriptors name, as
+//     64-channel regions of one 128-byte line a row.
+//   * The bias of each key tile comes by plain loads issued at the top of
+//     the step, one key a thread, into a double buffer of the warpgroup's
+//     (a TMA map needs 16-byte strides, which a bias row of 4 Lk bytes
+//     denies), with -inf past Lk. A warpgroup syncs its own 128 threads
+//     once a step (named barriers 1-2).
+//   * O leaves through shared memory (the warpgroup's q tile, free after
+//     the last S) by a 3-D TMA store, which clips rows past Lq; lse by
+//     plain stores from one thread of each quad.
+//   * Traps named and avoided. TMA over [B, L, C] uses 3-D maps (C, L, B):
+//     a 2-D map over B*L rows would read the next batch's rows at a ragged
+//     edge where a 3-D one fills zeros, so keys past Lk have k = v = 0 and
+//     bias -inf (p = 0), and rows past Lq read q = 0 and are not stored.
+//     The maps reach the kernel as __grid_constant__ parameters, encoded
+//     through cudaGetDriverEntryPoint (no -lcuda). Every key slot is read,
+//     masked or not: a NaN in a masked slot's k still gives NaN, as in JAX.
+//
+// bf16 at C = 256 (`fwd_nomax_bf16`, and C = 64 and 128 in the A/B tool's
+// `mma_sync` variant, and a call with no key): the first design, mma.sync
+// m16n8k16, 16 query rows a warp (8 warps at C = 64, 4 above); K and V
+// tiles stream through a two-stage cp.async ring, and ldmatrix reads them
+// (.trans gives V's B operand without a transposing copy).
+//
+// f32 (`fwd_nomax_f32`): exact f32 (no TF32) on plain FMA, 64x32 tiles.
+//
+// Any Lq and Lk: keys past Lk get p = 0, rows past Lq are not stored.
+// Entry points: `flash_fwd_nomax`, `flash_fwd_nomax_lse` and
+// `flash_fwd_nomax_body` below (plain C, bound with ctypes). The lse
+// output costs one f32 store per query row.
 
+#include <cuda.h>  // CUtensorMap and its enums only: nothing links libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -418,6 +459,462 @@ fwd_nomax_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at C = 64 and 128: warpgroup products (wgmma) fed by TMA through an
+// mbarrier ring. See the header for the design.
+// ---------------------------------------------------------------------------
+
+// C values whose bf16 forward runs `fwd_nomax_wgmma`; the others run
+// `fwd_nomax_bf16`.
+constexpr bool wgmma_body(int c) { return c == 64 || c == 128; }
+
+constexpr int kTile = 64 * 128;   // 64 rows of one 128-byte line
+constexpr int kConsumers = 2;     // warpgroups (64 queries each) a block
+constexpr int kKeys64 = 128;      // keys a step, C 64
+constexpr int kKeys128 = 128;     // keys a step, C 128
+constexpr int kStages64 = 3;      // depth of the K / V ring, C 64
+constexpr int kStages128 = 2;     // depth of the K / V ring, C 128
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Spins until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Named barrier over one warpgroup's 128 threads (id 0 is __syncthreads').
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// This thread's shared-memory writes, made visible to the async proxy
+// (wgmma operands and TMA stores).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Copies a shared-memory tile to global memory through `map`; box
+// elements outside the tensor are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until this thread's bulk operations have read their sources.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled tile at `p` (the swizzle TMA
+// writes): 8 rows of 128 bytes a 1024-byte group, groups 1024 bytes apart
+// (the stride offset, along M/N for a K-major operand and along K for an
+// MN-major one). The leading offset is unused by these layouts: a K-major
+// k-step stays inside its 128-byte line (the start moves 32 bytes) and an
+// MN-major operand is one 64-element line wide.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return uint64_t((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until this warpgroup's products have completed.
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous products that own it.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B, m64n64k16, bf16 in, f32 out, A and B in shared memory,
+// both K-major. `accumulate` = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da,
+                                          uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A B, m64n128k16, bf16 in, f32 out, A and B in shared memory,
+// both K-major. `accumulate` = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t da,
+                                          uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// S (+)= A B with N = BK keys, B at `b`: one m64n128k16 or m64n64k16
+// product a k-step, or two m64n128k16 side by side at BK = 256.
+template <int BK>
+__device__ __forceinline__ void wgmma_scores(float (&d)[BK / 2], uint64_t da,
+                                             const unsigned char* b,
+                                             int accumulate) {
+  if constexpr (BK == 128) {
+    wgmma_ss128(d, da, sw128_desc(b), accumulate);
+  } else if constexpr (BK == 64) {
+    wgmma_ss64(d, da, sw128_desc(b), accumulate);
+  } else {
+    static_assert(BK == 256, "key tile of 64, 128 or 256");
+    wgmma_ss128(*reinterpret_cast<float(*)[64]>(&d[0]), da, sw128_desc(b),
+                accumulate);
+    wgmma_ss128(*reinterpret_cast<float(*)[64]>(&d[64]), da,
+                sw128_desc(b + 128 * 128), accumulate);
+  }
+}
+
+// d += A B, m64n64k16, A (64 x 16) from registers in the fragment layout
+// of the accumulator, B in shared memory read MN-major (the transpose
+// bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// Shared memory of a block: byte offsets from a 1024-byte-aligned base.
+// A [rows][C] bf16 tile is H = C / 64 regions of [rows][64 channels], one
+// 128-byte line a row (the widest line TMA's 128-byte swizzle takes).
+template <int C, int BK, int NS>
+struct FwdWgTile {
+  static constexpr int H = C / 64;                    // regions a row
+  static constexpr int BQ = 64 * kConsumers;          // queries a block
+  static constexpr int KT = BK * 128;                 // a region of K or V
+  static constexpr int Q = 0;                         // [wg][H] q*qmul, O
+  static constexpr int K = Q + kConsumers * H * kTile;  // [NS][H] K tiles
+  static constexpr int V = K + NS * H * KT;           // [NS][H] V tiles
+  static constexpr int BIAS = V + NS * H * KT;        // [wg][2][BK] f32
+  static constexpr int BAR = BIAS + kConsumers * 2 * BK * 4;
+  static constexpr size_t smem = size_t(BAR + (2 * NS + 1) * 8) + 1024;
+  static constexpr uint32_t stage_bytes = 2 * H * KT;  // a K and a V tile
+  static_assert(smem <= 232448, "shared memory of one block");
+  static_assert(BK == 64 || BK == 128 || BK == 256, "key tile");
+};
+
+// One block: batch row blockIdx.y, queries blockIdx.x * BQ ..; warpgroup
+// wg owns queries wg * 64 .. wg * 64 + 63 of them. q, k, v, o: 3-D maps
+// (C, L, B), box (64, 64 or BK, 1), 128-byte swizzle.
+template <int C, int BK, int NS, bool USE_VALID>
+__global__ void __launch_bounds__(128 * kConsumers, 1)
+fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
+          const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv,
+          const __grid_constant__ CUtensorMap to,
+          const float* __restrict__ bias, float* __restrict__ lse, int lq,
+          int lk, float qmul) {
+  using T = FwdWgTile<C, BK, NS>;
+  constexpr int H = T::H, NB = (BK + 127) / 128;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + T::BAR);
+  uint64_t* empty = full + NS;
+  uint64_t* qbar = empty + NS;
+
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int lane = tid & 31, g = lane >> 2, tq4 = lane & 3;
+  const int r0 = 16 * (t >> 5) + g;  // accumulator rows r0, r0 + 8
+  const int sw = r0 & 7;             // their 128-byte swizzle phase
+  const int b = blockIdx.y, qw = blockIdx.x * T::BQ + wg * 64;
+  const int nk = (lk + BK - 1) / BK;
+  const float* biasb = bias + size_t(b) * lk;
+  auto load_stage = [&](int it) {  // thread 0
+    const int s = it % NS;
+    bar_expect_tx(&full[s], T::stage_bytes);
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      tma_load_3d(sm + T::K + (s * H + h) * T::KT, &tk, &full[s], 64 * h,
+                  it * BK, b);
+      tma_load_3d(sm + T::V + (s * H + h) * T::KT, &tv, &full[s], 64 * h,
+                  it * BK, b);
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 4 * kConsumers);  // one arrival a consumer warp
+    }
+    bar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {  // the block's q tiles once; the first NS key tiles
+    bar_expect_tx(qbar, kConsumers * H * kTile);
+#pragma unroll
+    for (int w = 0; w < kConsumers; ++w)
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        tma_load_3d(sm + T::Q + (w * H + h) * kTile, &tq, qbar, 64 * h,
+                    blockIdx.x * T::BQ + 64 * w, b);
+    for (int it = 0; it < NS && it < nk; ++it) load_stage(it);
+  }
+
+  unsigned char* qsw = sm + T::Q + wg * H * kTile;  // this warpgroup's q
+  float* bsw = reinterpret_cast<float*>(sm + T::BIAS) + wg * 2 * BK;
+  const int bar_id = 1 + wg;
+
+  // q * qmul rounded to bf16 in place, as the TPU kernel rounds it (JAX's
+  // weak typing): the scaling is elementwise, so the swizzle does not
+  // matter. qmul is a bf16 value (the wrapper rounds it so) and the
+  // product of two bf16 is exact in f32, so one bf16x2 multiply rounds as
+  // f32-then-bf16 does.
+  bar_wait(qbar, 0);
+  {
+    const __nv_bfloat162 qm2 = __float2bfloat162_rn(qmul);
+#pragma unroll
+    for (int i = t; i < H * kTile / 16; i += 128) {
+      uint4 raw = reinterpret_cast<const uint4*>(qsw)[i];
+      __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h2[e] = __hmul2(h2[e], qm2);
+      reinterpret_cast<uint4*>(qsw)[i] = raw;
+    }
+  }
+  fence_async_smem();
+
+  float oacc[H][32];
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[h][i] = 0.f;
+  float l0 = 0.f, l1 = 0.f;  // row sums of rows r0 and r0 + 8 (this part)
+
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % NS, k0 = it * BK;
+    float* bt = bsw + (it & 1) * BK;
+    // This tile's bias by plain loads, issued before the wait so that
+    // they land while it waits for its tiles (a TMA map needs 16-byte
+    // strides, which a bias row of 4 Lk bytes denies). Keys past lk get
+    // -inf: with their zero-filled K rows, p = exp2(-inf) = 0.
+    float bv[NB];
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      const int i = t + 128 * n;
+      bv[n] = i < BK && k0 + i < lk ? biasb[k0 + i]
+                                    : __int_as_float(0xff800000);
+    }
+    bar_wait(&full[s], (it / NS) & 1);
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+      if (t + 128 * n < BK) bt[t + 128 * n] = bv[n];
+    // this buffer's readers two steps back are past this step's sync,
+    // and the sync makes the bias (and, first time, q * qmul) visible
+    wg_sync(bar_id);
+
+    // S = (q*qmul) K^T: 64 queries x BK keys; a k-step is 16 channels,
+    // 32 bytes along a region's line
+    float st[BK / 2];
+    fence_acc(st);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C / 16; ++kk) {
+      const int o = (kk >> 2) * kTile + 32 * (kk & 3);
+      wgmma_scores<BK>(st, sw128_desc(qsw + o),
+                       sm + T::K + (s * H + (kk >> 2)) * T::KT +
+                           32 * (kk & 3),
+                       kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc(st);
+
+    // p = exp2(min(s + bias, 60)) [* valid] in f32 for the row sums, and
+    // as bf16 A fragments (pa) for P V
+    uint32_t pa[BK / 4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float2 b2 = *reinterpret_cast<const float2*>(bt + 8 * j + 2 * tq4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float bb = (e & 1) ? b2.y : b2.x;
+        float p = ex2(clamp_hi(st[4 * j + e] + bb));
+        if (USE_VALID) p *= (bb > kValidThreshold) ? 1.f : 0.f;
+        if (e < 2) l0 += p; else l1 += p;
+        st[4 * j + e] = p;
+      }
+      pa[2 * j] = pack_bf16(st[4 * j], st[4 * j + 1]);
+      pa[2 * j + 1] = pack_bf16(st[4 * j + 2], st[4 * j + 3]);
+    }
+
+    // O += P V: A = P from registers, B = the V tile read MN-major, 16
+    // keys (2048 bytes) a k-step, 64 channels a product
+#pragma unroll
+    for (int h = 0; h < H; ++h) fence_acc(oacc[h]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        wgmma_rs(oacc[h], pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                 pa[4 * kk + 3],
+                 sw128_desc(sm + T::V + (s * H + h) * T::KT + 2048 * kk));
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int h = 0; h < H; ++h) fence_acc(oacc[h]);
+    if (lane == 0) bar_arrive(&empty[s]);  // this warp is done with s
+
+    if (tid == 0 && it + NS < nk) {  // refill stage s once every warp left it
+      bar_wait(&empty[s], (it / NS) & 1);
+      load_stage(it + NS);
+    }
+  }
+
+  // The four threads of a quad hold disjoint columns of the same rows.
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = floor_l(l0), d1 = floor_l(l1);
+
+  // O / max(l, 1e-30) as bf16 into this warpgroup's q tile (its last
+  // reader, the last S product, has completed), in the swizzle TMA reads;
+  // then one 3-D TMA store a region, which clips rows past lq.
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int off = ((j ^ sw) << 4) + 4 * tq4;
+      unsigned char* row = qsw + h * kTile + r0 * 128 + off;
+      *reinterpret_cast<uint32_t*>(row) =
+          pack_bf16(oacc[h][4 * j] / d0, oacc[h][4 * j + 1] / d0);
+      *reinterpret_cast<uint32_t*>(row + 8 * 128) =
+          pack_bf16(oacc[h][4 * j + 2] / d1, oacc[h][4 * j + 3] / d1);
+    }
+  fence_async_smem();
+  wg_sync(bar_id);
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      tma_store_3d(&to, qsw + h * kTile, 64 * h, qw, b);
+    bulk_commit();
+    bulk_wait_read();  // the tile stays in shared memory until read
+  }
+  if (lse != nullptr && tq4 == 0) {  // lse2 = log2(max(l, 1e-30)), NaN kept
+    float* lb = lse + size_t(b) * lq;
+    if (qw + r0 < lq) lb[qw + r0] = log2f(d0);
+    if (qw + r0 + 8 < lq) lb[qw + r0 + 8] = log2f(d1);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launch helpers.
 // ---------------------------------------------------------------------------
 
@@ -453,10 +950,84 @@ cudaError_t launch(Kernel kernel, std::atomic<uint32_t>& set_on, int rows,
   return cudaGetLastError();
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a driver call, found through the runtime so that
+// the library needs no -lcuda; null if the driver lacks it.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// 3-D map (C, L, B) of a contiguous bf16 [B, L, C] tensor, box (64, box_l,
+// 1), 128-byte swizzle: a box reaching past L reads zeros there (and a
+// store drops those rows) instead of running into the next batch row.
+bool map_3d(EncodeTiled enc, CUtensorMap* m, const void* base, int c, int l,
+            int b, int box_l) {
+  const cuuint64_t dims[3] = {cuuint64_t(c), cuuint64_t(l), cuuint64_t(b)};
+  const cuuint64_t strides[2] = {cuuint64_t(c) * 2, cuuint64_t(l) * c * 2};
+  const cuuint32_t box[3] = {64, cuuint32_t(box_l), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// C = 128 takes a two-stage ring: a third would pass 227 KB of shared
+// memory.
+template <int C, bool UV>
+cudaError_t run_wgmma(const void* q, const void* k, const void* v,
+                      const void* bias, void* o, float* lse, int b, int lq,
+                      int lk, float qmul, cudaStream_t stream) {
+  constexpr int BK = C == 64 ? kKeys64 : kKeys128;
+  constexpr int NS = C == 64 ? kStages64 : kStages128;
+  using T = FwdWgTile<C, BK, NS>;
+  auto kernel = &fwd_nomax_wgmma<C, BK, NS, UV>;
+  static std::atomic<uint32_t> set_on{0};
+  cudaError_t err = allow_smem(kernel, T::smem, set_on);
+  if (err != cudaSuccess) return err;
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  CUtensorMap mq, mk, mv, mo;
+  const bool ok = map_3d(enc, &mq, q, C, lq, b, 64) &&
+                  map_3d(enc, &mk, k, C, lk, b, BK) &&
+                  map_3d(enc, &mv, v, C, lk, b, BK) &&
+                  map_3d(enc, &mo, o, C, lq, b, 64);
+  if (!ok) return cudaErrorInvalidValue;
+  dim3 grid((lq + T::BQ - 1) / T::BQ, b);
+  kernel<<<grid, 128 * kConsumers, T::smem, stream>>>(
+      mq, mk, mv, mo, static_cast<const float*>(bias), lse, lq, lk, qmul);
+  return cudaGetLastError();
+}
+
 template <int C, bool UV>
 cudaError_t run(bool bf16, const void* q, const void* k, const void* v,
                 const void* bias, void* o, float* lse, int b, int lq, int lk,
                 float qmul, cudaStream_t stream) {
+  // No key (a map cannot have length 0): the mma.sync body writes o = 0.
+  if constexpr (wgmma_body(C)) {
+    if (bf16 && lk > 0)
+      return run_wgmma<C, UV>(q, k, v, bias, o, lse, b, lq, lk, qmul, stream);
+  }
   if (bf16) {
     // 128 f32 accumulators a thread at C = 256: halve the key tile there.
     // At C = 64 a block takes 128 queries, which halves the K/V reads
@@ -521,4 +1092,12 @@ extern "C" int flash_fwd_nomax_lse(const void* q, const void* k,
                                    void* stream) {
   return dispatch(q, k, v, bias, o, static_cast<float*>(lse), b, lq, lk, c,
                   is_bf16, use_valid, qmul, stream);
+}
+
+// Which body the bf16 forward runs at C channels: 2 = wgmma
+// (`fwd_nomax_wgmma`), 1 = mma.sync (`fwd_nomax_bf16`), 0 = no kernel for
+// that C.
+extern "C" int flash_fwd_nomax_body(int c) {
+  if (c != 64 && c != 128 && c != 256) return 0;
+  return wgmma_body(c) ? 2 : 1;
 }

@@ -220,6 +220,7 @@ _ENTRIES = {
     "flash_bwd": ("flash_bwd", [_ptr] * 10 + [_int] * 7 + [_float] * 2
                   + [_ptr]),
     "flash_bwd_body": ("flash_bwd", [_int]),
+    "flash_fwd_nomax_body": ("flash_fwd_nomax", [_int]),
 }
 
 
@@ -236,6 +237,9 @@ def _entry(name: str):
 # Channels whose bf16 K4 runs the wgmma body (`wgmma_body` in
 # csrc/flash_bwd.cu; `flash_bwd_body` reads the library's own answer).
 BWD_WGMMA_CHANNELS = (64, 128)
+# Channels whose bf16 K1 and K2 run the wgmma body (`wgmma_body` in
+# csrc/flash_fwd_nomax.cu; `flash_fwd_nomax_body` reads the library's).
+FWD_WGMMA_CHANNELS = (64, 128)
 _BODIES = {2: "wgmma", 1: "mma_sync"}
 
 
@@ -247,11 +251,40 @@ def flash_bwd_body(c: int, dtype: torch.dtype) -> str:
     return _BODIES[_entry("flash_bwd_body")(c)]
 
 
+def flash_fwd_nomax_body(c: int, dtype: torch.dtype) -> str:
+    """The body K1 and K2 run at `c` channels in `dtype` on the card, as
+    `flash_bwd_body` says K4's."""
+    if dtype == torch.float32:
+        return "fma"
+    return _BODIES[_entry("flash_fwd_nomax_body")(c)]
+
+
 def _launch(name: str, device: torch.device, *args) -> None:
     with torch.cuda.device(device):
         err = _entry(name)(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+# Batch rows a launch takes: every kernel puts the batch on the grid's y
+# dimension, which stops at 65,535. 65,528 is the largest multiple of 8
+# below it, so each chunk of an f32 [B, 1, L] row (bias, lse, delta) and of
+# K6's 130-byte rows still starts on a 16-byte boundary.
+MAX_BATCH_ROWS = 65528
+
+
+def _launch_batched(name: str, tensors: tuple, *rest,
+                    rows: int = MAX_BATCH_ROWS) -> int:
+    """Launches `name` once for each chunk of at most `rows` batch rows
+    (rows are independent in every kernel): the arguments are each tensor
+    of `tensors` ([B, ...], contiguous) at the chunk's first row, the
+    chunk's row count, then `rest`. Returns the number of launches."""
+    b = tensors[0].shape[0]
+    for i in range(0, b, rows):
+        _launch(name, tensors[0].device,
+                *(t[i:i + rows].data_ptr() for t in tensors),
+                min(rows, b - i), *rest)
+    return -(-b // rows)
 
 
 def _on_card(q: torch.Tensor) -> bool:
@@ -308,11 +341,10 @@ def flash_fwd_nomax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, bias)
     b, lq, c = q.shape
     o = torch.empty_like(q)
-    _launch("flash_fwd_nomax", q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), bias.data_ptr(), o.data_ptr(), b, lq, k.shape[1],
-            c, int(q.dtype == torch.bfloat16), int(use_valid),
-            weak_scalar(scale * _LOG2E, q.dtype))
-    flash_fwd_nomax.launches += 1
+    flash_fwd_nomax.launches += _launch_batched(
+        "flash_fwd_nomax", (q, k, v, bias, o), lq, k.shape[1], c,
+        int(q.dtype == torch.bfloat16), int(use_valid),
+        weak_scalar(scale * _LOG2E, q.dtype))
     return o
 
 
@@ -333,11 +365,10 @@ def flash_fwd_nomax_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, lq, c = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(b, 1, lq, device=q.device)
-    _launch("flash_fwd_nomax_lse", q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), bias.data_ptr(), o.data_ptr(), lse.data_ptr(), b,
-            lq, k.shape[1], c, int(q.dtype == torch.bfloat16),
-            int(use_valid), weak_scalar(scale * _LOG2E, q.dtype))
-    flash_fwd_nomax_lse.launches += 1
+    flash_fwd_nomax_lse.launches += _launch_batched(
+        "flash_fwd_nomax_lse", (q, k, v, bias, o, lse), lq, k.shape[1], c,
+        int(q.dtype == torch.bfloat16), int(use_valid),
+        weak_scalar(scale * _LOG2E, q.dtype))
     return o, lse
 
 
@@ -356,28 +387,28 @@ def flash_fwd_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, lq, c = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(b, 1, lq, device=q.device)
-    _launch("flash_fwd_online", q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), bias.data_ptr(), o.data_ptr(), lse.data_ptr(), b,
-            lq, k.shape[1], c, int(q.dtype == torch.bfloat16),
-            int(use_valid), weak_scalar(scale * _LOG2E, q.dtype))
-    flash_fwd_online.launches += 1
+    flash_fwd_online.launches += _launch_batched(
+        "flash_fwd_online", (q, k, v, bias, o, lse), lq, k.shape[1], c,
+        int(q.dtype == torch.bfloat16), int(use_valid),
+        weak_scalar(scale * _LOG2E, q.dtype))
     return o, lse
 
 
 flash_fwd_online.launches = 0
 
 
-def _check_bwd_grid(b: int, lq: int, c: int, dtype: torch.dtype) -> None:
-    """What K4's launch cannot take: more batch rows than a grid's y
-    dimension (65,535), and for the wgmma body more than 2^31 - 1 query
-    rows in all, since its lse and delta maps run over B * Lq with int32
-    coordinates."""
-    if b > 65535:
-        raise ValueError(f"flash_bwd takes at most 65535 batch rows, got {b}")
-    if (dtype == torch.bfloat16 and c in BWD_WGMMA_CHANNELS
-            and b * lq >= 2 ** 31):
-        raise ValueError(f"flash_bwd's wgmma body takes B * Lq < 2^31, got "
-                         f"{b} x {lq}")
+def _bwd_chunk_rows(lq: int, c: int, dtype: torch.dtype) -> int:
+    """Batch rows a K4 launch takes: MAX_BATCH_ROWS, and for the wgmma body
+    also B * Lq < 2^31 a launch, which keeps every query row's flat index
+    an int32, in a multiple of 8. Raises ValueError where not even 8 rows
+    fit (Lq >= 2^28)."""
+    rows = MAX_BATCH_ROWS
+    if dtype == torch.bfloat16 and c in BWD_WGMMA_CHANNELS:
+        rows = min(rows, (2 ** 31 - 1) // max(lq, 1) // 8 * 8)
+        if rows == 0:
+            raise ValueError(f"flash_bwd's wgmma body takes 8 * Lq < 2^31, "
+                             f"got Lq = {lq}")
+    return rows
 
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -408,16 +439,15 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"lse must be f32 [{b}, 1, {lq}], got {lse.dtype} "
                          f"{tuple(lse.shape)}")
     _check_layout("lse", lse, q.device)
-    _check_bwd_grid(b, lq, c, q.dtype)
+    rows = _bwd_chunk_rows(lq, c, q.dtype)
     delta = _delta(o, do)
     dq = torch.zeros(b, lq, c, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            bias.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, lq, k.shape[1], c,
-            int(q.dtype == torch.bfloat16), int(use_valid), int(clamp),
-            weak_scalar(scale * _LOG2E, q.dtype), float(scale))
-    flash_bwd.launches += 1
+    flash_bwd.launches += _launch_batched(
+        "flash_bwd", (q, k, v, bias, do, lse, delta, dq, dk, dv), lq,
+        k.shape[1], c, int(q.dtype == torch.bfloat16), int(use_valid),
+        int(clamp), weak_scalar(scale * _LOG2E, q.dtype), float(scale),
+        rows=rows)
     return dq.to(q.dtype), dk, dv
 
 

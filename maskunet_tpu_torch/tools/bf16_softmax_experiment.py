@@ -87,10 +87,8 @@ def flash_fwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, lq, c = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(b, 1, lq, device=q.device)
-    fk._launch("flash_fwd_online_bf16", q.device, q.data_ptr(),
-               k.data_ptr(), v.data_ptr(), bias.data_ptr(), o.data_ptr(),
-               lse.data_ptr(), b, lq, k.shape[1], c)
-    flash_fwd_bf16.launches += 1
+    flash_fwd_bf16.launches += fk._launch_batched(
+        "flash_fwd_online_bf16", (q, k, v, bias, o, lse), lq, k.shape[1], c)
     return o, lse
 
 

@@ -85,10 +85,8 @@ def old_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, lq, c = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(b, 1, lq, device=q.device)
-    fk._launch("flash_fwd_online_exp", q.device, q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), bias.data_ptr(), o.data_ptr(), lse.data_ptr(),
-               b, lq, k.shape[1], c)
-    old_flash_fwd.launches += 1
+    old_flash_fwd.launches += fk._launch_batched(
+        "flash_fwd_online_exp", (q, k, v, bias, o, lse), lq, k.shape[1], c)
     return o, lse
 
 
@@ -134,10 +132,8 @@ def nomax65_fwd(q65: torch.Tensor, k65: torch.Tensor, v: torch.Tensor,
         fk._check_layout(name, t, q65.device, align=2)
     fk._check_layout("v", v, q65.device)
     o = torch.empty(b, lq, C, dtype=v.dtype, device=v.device)
-    fk._launch("flash_fwd_nomax65", q65.device, q65.data_ptr(),
-               k65.data_ptr(), v.data_ptr(), o.data_ptr(), b, lq, lk,
-               int(clamp))
-    nomax65_fwd.launches += 1
+    nomax65_fwd.launches += fk._launch_batched(
+        "flash_fwd_nomax65", (q65, k65, v, o), lq, lk, int(clamp))
     return o
 
 

@@ -256,27 +256,127 @@ def test_backward_body_channels_match_the_kernel_source():
     assert f"constexpr bool wgmma_body(int c) {{ return {want}; }}" in src
 
 
-@pytest.mark.parametrize("shape", [(65536, 8, 8), (2, 2 ** 30, 8)])
+def test_fwd_ab_variants_apply_to_the_kernel_source():
+    """Every K1/K2 variant of the forward A/B tool is one substitution of
+    the committed source away: the mma.sync body at C 64 and 128, a ring
+    of two or four stages, 64 or 256 keys a step."""
+    from maskunet_tpu_torch.tools import fwd_ab
+    src = tk.SOURCES["flash_fwd_nomax"].read_text()
+    texts = fwd_ab.variants(src)
+    assert set(texts) == {"source", "mma_sync", "stages2", "stages4",
+                          "keys64", "keys256"}
+    assert texts["source"] == src
+    assert len(set(texts.values())) == len(texts)
+    assert "return false;" in texts["mma_sync"]
+    for name, old in (("mma_sync", fwd_ab._WGMMA_C),
+                      ("stages2", fwd_ab._STAGES),
+                      ("stages4", fwd_ab._STAGES),
+                      ("keys64", fwd_ab._KEYS), ("keys256", fwd_ab._KEYS)):
+        assert old not in texts[name]
+        with pytest.raises(ValueError, match="no longer holds"):
+            fwd_ab.variants(src.replace(old, ""))
+
+
+def test_forward_body_channels_match_the_kernel_source():
+    """The wrapper's list of the forward's wgmma channels is the source's
+    own."""
+    src = tk.SOURCES["flash_fwd_nomax"].read_text()
+    want = " || ".join(f"c == {c}" for c in tk.FWD_WGMMA_CHANNELS)
+    assert f"constexpr bool wgmma_body(int c) {{ return {want}; }}" in src
+    assert 'extern "C" int flash_fwd_nomax_body(int c)' in src
+
+
+def _recorded_launches(monkeypatch) -> list:
+    """Takes every tensor for the card and records each launch's (entry,
+    arguments) instead of launching."""
+    calls = []
+    monkeypatch.setattr(tk, "_on_card", lambda t: True)
+    monkeypatch.setattr(tk, "_launch",
+                        lambda name, device, *args: calls.append((name, args)))
+    return calls
+
+
+def _chunk_check(calls, name, tensors, n_ptrs, b, rows):
+    """One launch of `name` a chunk of at most `rows` batch rows: its first
+    pointers those of `tensors` at the chunk's first row, and after all
+    `n_ptrs` pointers (the wrapper's outputs and scratch too) the chunk's
+    row count."""
+    starts = range(0, b, rows)
+    assert [c[0] for c in calls] == [name] * len(starts)
+    for (_, args), i in zip(calls, starts):
+        assert list(args[:len(tensors)]) == [
+            t.data_ptr() + i * t[0].numel() * t.element_size()
+            for t in tensors]
+        assert args[n_ptrs] == min(rows, b - i)
+
+
+@pytest.mark.parametrize("shape", [(65536, 8, 8), (2, 2 ** 30, 8),
+                                   (4096, 2 ** 20, 8)])
 def test_backward_wrapper_refuses_what_its_launch_cannot_take(shape,
                                                              monkeypatch):
-    """A tensor taken for the card whose shape the launch cannot take (a
-    grid of more than 65,535 batch rows; for the wgmma body, B * Lq past
-    int32) raises ValueError before anything is launched or computed."""
+    """K4 past what one launch takes: more batch rows than a grid's y
+    dimension (65,535) go in chunks of 65,528 rows, and for the wgmma body
+    in chunks whose B * Lq stays below 2^31 (2,040 rows at Lq = 2^20);
+    where not even 8 rows fit (Lq >= 2^28) it raises ValueError before
+    anything is launched or computed."""
     b, lq, lk = shape
     q = torch.empty(b, lq, 64, dtype=torch.bfloat16, device="meta")
     k = torch.empty(b, lk, 64, dtype=torch.bfloat16, device="meta")
     bias = torch.empty(b, 1, lk, device="meta")
     lse = torch.empty(b, 1, lq, device="meta")
-    monkeypatch.setattr(tk, "_on_card", lambda t: True)
-
-    def no_launch(name, *args):
-        raise AssertionError(f"{name} launched")
-
-    monkeypatch.setattr(tk, "_launch", no_launch)
+    calls = _recorded_launches(monkeypatch)
     before = tk.flash_bwd.launches
-    with pytest.raises(ValueError, match="flash_bwd"):
-        tk.flash_bwd(q, k, k, bias, q, lse, q, 1.0)
-    assert tk.flash_bwd.launches == before
+    if lq >= 2 ** 28:
+        with pytest.raises(ValueError, match="flash_bwd"):
+            tk.flash_bwd(q, k, k, bias, q, lse, q, 1.0)
+        assert calls == [] and tk.flash_bwd.launches == before
+        return
+    tk.flash_bwd(q, k, k, bias, q, lse, q, 1.0)
+    rows = 65528 if b * lq < 2 ** 31 else (2 ** 31 - 1) // lq // 8 * 8
+    assert rows == (65528 if lq == 8 else 2040)
+    # (q, k, v, bias, do, lse, then the wrapper's delta, dq, dk, dv)
+    _chunk_check(calls, "flash_bwd", (q, k, k, bias, q, lse), 10, b, rows)
+    assert tk.flash_bwd.launches == before + len(calls)
+
+
+def _forward_wrapper_calls(b):
+    """(counter holder, entry, call, batch-leading inputs, pointers a
+    launch takes) of each forward wrapper on meta tensors of `b` batch
+    rows."""
+    q, k = (torch.empty(b, 8, 64, dtype=torch.bfloat16, device="meta")
+            for _ in range(2))
+    bias = torch.empty(b, 1, 8, device="meta")
+    q65 = torch.empty(b, 8, 65, dtype=torch.bfloat16, device="meta")
+    return [
+        (tk.flash_fwd_nomax, "flash_fwd_nomax",
+         lambda: tk.flash_fwd_nomax(q, k, k, bias, 1.0), (q, k, k, bias), 5),
+        (tk.flash_fwd_nomax_lse, "flash_fwd_nomax_lse",
+         lambda: tk.flash_fwd_nomax_lse(q, k, k, bias, 1.0), (q, k, k, bias),
+         6),
+        (tk.flash_fwd_online, "flash_fwd_online",
+         lambda: tk.flash_fwd_online(q, k, k, bias, 1.0), (q, k, k, bias),
+         6),
+        (tsab.old_flash_fwd, "flash_fwd_online_exp",
+         lambda: tsab.old_flash_fwd(q, k, k, bias), (q, k, k, bias), 6),
+        (tsab.nomax65_fwd, "flash_fwd_nomax65",
+         lambda: tsab.nomax65_fwd(q65, q65, k), (q65, q65, k), 4),
+        (tbf.flash_fwd_bf16, "flash_fwd_online_bf16",
+         lambda: tbf.flash_fwd_bf16(q, k, k, bias), (q, k, k, bias), 6),
+    ]
+
+
+@pytest.mark.parametrize("which", range(6))
+def test_forward_wrappers_launch_in_batch_chunks(which, monkeypatch):
+    """K1, K2, K3, K5, K6 and K7 launch 65,536 batch rows as two launches,
+    of 65,528 and 8 rows (a grid's y dimension stops at 65,535), each with
+    the inputs' pointers at its first row; every launch is counted."""
+    calls = _recorded_launches(monkeypatch)
+    wrapper, name, call, inputs, n_ptrs = _forward_wrapper_calls(65536)[which]
+    before = wrapper.launches
+    call()
+    _chunk_check(calls, name, inputs, n_ptrs, 65536, 65528)
+    assert [c[1][n_ptrs] for c in calls] == [65528, 8]
+    assert wrapper.launches == before + 2
 
 
 @pytest.fixture
@@ -383,6 +483,35 @@ def test_backward_kernel_at_ragged_edges_on_card(cuda, c, edge):
                                           c ** -0.5, use_valid, clamp=clamp)
             for gt, w in zip(got, want):
                 _agrees(gt, w)
+
+
+@pytest.mark.cuda
+def test_kernels_past_65535_batch_rows_on_card(cuda):
+    """65,536 batch rows (small L, bf16, C 64: the wgmma bodies): K1, K2
+    and K4 launch twice, in chunks of 65,528 and 8 rows, and agree with
+    their plain versions on every row."""
+    b, lq, lk = 65536, 20, 24
+    g = torch.Generator().manual_seed(7)
+    q, k, v, do = (torch.randn(b, n, 64, generator=g).to(cuda, torch.bfloat16)
+                   for n in (lq, lk, lk, lq))
+    bias = tfa.mask_to_bias(torch.rand(b, lk, generator=g) < 0.5, b,
+                            lk).to(cuda)
+    counts = (tk.flash_fwd_nomax.launches, tk.flash_fwd_nomax_lse.launches,
+              tk.flash_bwd.launches)
+    o1 = tk.flash_fwd_nomax(q, k, v, bias, 0.125, True)
+    o, lse = tk.flash_fwd_nomax_lse(q, k, v, bias, 0.125, True)
+    got = tk.flash_bwd(q, k, v, bias, o, lse, do, 0.125, True)
+    torch.cuda.synchronize()
+    assert (tk.flash_fwd_nomax.launches, tk.flash_fwd_nomax_lse.launches,
+            tk.flash_bwd.launches) == tuple(n + 2 for n in counts)
+    want_o, want_lse = tk.flash_fwd_nomax_reference(q, k, v, bias, 0.125,
+                                                    True, with_lse=True)
+    _agrees(o1, want_o)
+    _agrees(o, want_o)
+    _agrees(lse, want_lse)
+    want = tk.flash_bwd_reference(q, k, v, bias, o, lse, do, 0.125, True)
+    for gt, w in zip(got, want):
+        _agrees(gt, w)
 
 
 @pytest.mark.cuda
