@@ -33,29 +33,41 @@
 // that both products can run at the tensor cores' full rate, fed by TMA
 // and mbarriers, with no block-wide barrier in the sweep.
 //
-//   * Each warpgroup (4 warps) owns 64 queries; a block holds two (128
-//     queries). Per step of BK = 128 keys and warpgroup:
-//       S  = (q*qmul) K^T   wgmma m64n128k16, A = the q tile, B = the K
-//                           tile, both K-major from shared memory
+//   * Each consumer warpgroup (4 warps) owns 64 queries; a block holds two
+//     (128 queries) and a producer warpgroup. Per step of BK keys (128 at
+//     C = 64, 64 at C = 128) and consumer warpgroup:
+//       S  = (q*qmul) K^T   wgmma m64n128k16 (m64n64k16 at C = 128), A =
+//                           the q tile, B = the K tile, both K-major from
+//                           shared memory
 //       O += P V            wgmma m64n64k16, A = P packed to bf16 straight
 //                           from the S accumulator registers, B = the V
 //                           tile read MN-major (the transpose bit), one
 //                           product per 64 channels
-//     S and O stay f32 in registers (64 + 32 a thread at C = 64, 64 + 64
+//     S and O stay f32 in registers (64 + 32 a thread at C = 64, 32 + 64
 //     at C = 128), so the softmax runs on the S registers.
-//   * K and V are read once a block, by TMA, not once a warp: thread 0
-//     streams them (3-D maps, box 64 channels x BK keys a region) through
-//     a ring of mbarrier-tracked stages (three at C = 64, two at C = 128:
-//     shared memory); each warp releases a stage on an `empty` mbarrier
-//     once its products have read it, and thread 0 then refills it. The q
+//   * Warp specialisation. One thread of the producer warpgroup streams K
+//     and V (3-D maps, box 64 channels x BK keys a region) through a
+//     four-stage ring of mbarrier-tracked stages; each consumer warp
+//     releases a stage on an `empty` mbarrier once its products have read
+//     it. K and V are read once a block, not once a warp. The producer
+//     gives up registers (`setmaxnreg` 24) to the consumers (240), though
+//     ptxas still allocates each thread at most 65536 / 384 = 168. The q
 //     tile comes once by TMA and is scaled in place. Every tile is in the
 //     128-byte swizzle both TMA and the wgmma descriptors name, as
 //     64-channel regions of one 128-byte line a row.
-//   * The bias of each key tile comes by plain loads issued at the top of
-//     the step, one key a thread, into a double buffer of the warpgroup's
-//     (a TMA map needs 16-byte strides, which a bias row of 4 Lk bytes
-//     denies), with -inf past Lk. A warpgroup syncs its own 128 threads
-//     once a step (named barriers 1-2).
+//   * Pipelining. Step j issues S_j and P_{j-1} V_{j-1} together, then
+//     runs tile j's softmax (exp2 on the SFUs; the add, clamp, sum and
+//     pack on the ALUs) while P_{j-1} V_{j-1} is still in flight, and the
+//     two warpgroups' steps interleave freely. (Ping-pong, the warpgroups
+//     taking turns at the tensor cores by named barriers, is kept behind
+//     `kPingPong` for the A/B tool: it measured slower.) The first and
+//     last steps are peeled so that no product is issued on a divergent
+//     path (ptxas then serialises every wgmma: C7520).
+//   * The bias of each key tile comes by plain loads, one key a thread,
+//     issued a step ahead into registers and moved to a double buffer of
+//     the warpgroup's in shared memory (a TMA map needs 16-byte strides,
+//     which a bias row of 4 Lk bytes denies), with -inf past Lk. A
+//     warpgroup syncs its own 128 threads once a step.
 //   * O leaves through shared memory (the warpgroup's q tile, free after
 //     the last S) by a 3-D TMA store, which clips rows past Lq; lse by
 //     plain stores from one thread of each quad.
@@ -468,11 +480,21 @@ fwd_nomax_f32(const float* __restrict__ q, const float* __restrict__ k,
 constexpr bool wgmma_body(int c) { return c == 64 || c == 128; }
 
 constexpr int kTile = 64 * 128;   // 64 rows of one 128-byte line
-constexpr int kConsumers = 2;     // warpgroups (64 queries each) a block
+// A warpgroup of its own streams K and V (false: thread 0 refills each
+// stage after its own step); the consumer warpgroups take turns at the
+// tensor cores (ping-pong) when true. Both are the A/B tool's switches.
+constexpr bool kProducerWarp = true;
+constexpr bool kPingPong = false;
+// The tile shapes, chosen by tools/fwd_ab.py's A/B on the card: three
+// consumer warpgroups cap a thread at 128 registers (ptxas allocates for
+// 65536 / threads whatever `setmaxnreg` grants later), where use_valid's
+// body spills; 64 keys a step at C = 128 keep its S and P small beside
+// its 64 O accumulators.
+constexpr int kConsumers = 2;     // consumer warpgroups (64 queries each)
 constexpr int kKeys64 = 128;      // keys a step, C 64
-constexpr int kKeys128 = 128;     // keys a step, C 128
-constexpr int kStages64 = 3;      // depth of the K / V ring, C 64
-constexpr int kStages128 = 2;     // depth of the K / V ring, C 128
+constexpr int kKeys128 = 64;      // keys a step, C 128
+constexpr int kStages64 = 4;      // depth of the K / V ring, C 64
+constexpr int kStages128 = 4;     // depth of the K / V ring, C 128
 
 __device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -569,9 +591,21 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-// Waits until this warpgroup's products have completed.
+// Waits until at most N of this warpgroup's committed product groups are
+// pending (groups complete in order).
+template <int N>
 __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Named barrier over both consumer warpgroups (256 threads): one waits
+// for its turn at the tensor cores, the other hands it over.
+__device__ __forceinline__ void tc_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void tc_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of an accumulator across
@@ -691,34 +725,43 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
 // Shared memory of a block: byte offsets from a 1024-byte-aligned base.
 // A [rows][C] bf16 tile is H = C / 64 regions of [rows][64 channels], one
 // 128-byte line a row (the widest line TMA's 128-byte swizzle takes).
-template <int C, int BK, int NS>
+template <int C, int BK, int NS, int WGS>
 struct FwdWgTile {
   static constexpr int H = C / 64;                    // regions a row
-  static constexpr int BQ = 64 * kConsumers;          // queries a block
+  static constexpr int BQ = 64 * WGS;                 // queries a block
   static constexpr int KT = BK * 128;                 // a region of K or V
   static constexpr int Q = 0;                         // [wg][H] q*qmul, O
-  static constexpr int K = Q + kConsumers * H * kTile;  // [NS][H] K tiles
+  static constexpr int K = Q + WGS * H * kTile;       // [NS][H] K tiles
   static constexpr int V = K + NS * H * KT;           // [NS][H] V tiles
   static constexpr int BIAS = V + NS * H * KT;        // [wg][2][BK] f32
-  static constexpr int BAR = BIAS + kConsumers * 2 * BK * 4;
+  static constexpr int BAR = BIAS + WGS * 2 * BK * 4;
+  // threads a block, and the registers of each consumer thread once the
+  // producer warpgroup has given up all but 24 of its own (a multiple of
+  // 8, at most 240)
+  static constexpr int threads = 128 * (WGS + (kProducerWarp ? 1 : 0));
+  static constexpr int consumer_regs =
+      (65536 - 128 * 24) / (128 * WGS) / 8 * 8 > 240
+          ? 240
+          : (65536 - 128 * 24) / (128 * WGS) / 8 * 8;
   static constexpr size_t smem = size_t(BAR + (2 * NS + 1) * 8) + 1024;
   static constexpr uint32_t stage_bytes = 2 * H * KT;  // a K and a V tile
   static_assert(smem <= 232448, "shared memory of one block");
   static_assert(BK == 64 || BK == 128 || BK == 256, "key tile");
 };
 
-// One block: batch row blockIdx.y, queries blockIdx.x * BQ ..; warpgroup
-// wg owns queries wg * 64 .. wg * 64 + 63 of them. q, k, v, o: 3-D maps
-// (C, L, B), box (64, 64 or BK, 1), 128-byte swizzle.
-template <int C, int BK, int NS, bool USE_VALID>
-__global__ void __launch_bounds__(128 * kConsumers, 1)
+// One block: batch row blockIdx.y, queries blockIdx.x * BQ ..; consumer
+// warpgroup wg (0 or 1) owns queries wg * 64 .. wg * 64 + 63 of them, and
+// with kProducerWarp a third warpgroup streams the tiles. q, k, v, o: 3-D
+// maps (C, L, B), box (64, 64 or BK, 1), 128-byte swizzle.
+template <int C, int BK, int NS, int WGS, bool USE_VALID>
+__global__ void __launch_bounds__(FwdWgTile<C, BK, NS, WGS>::threads, 1)
 fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
-          const __grid_constant__ CUtensorMap tk,
-          const __grid_constant__ CUtensorMap tv,
-          const __grid_constant__ CUtensorMap to,
-          const float* __restrict__ bias, float* __restrict__ lse, int lq,
-          int lk, float qmul) {
-  using T = FwdWgTile<C, BK, NS>;
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap to,
+                const float* __restrict__ bias, float* __restrict__ lse,
+                int lq, int lk, float qmul) {
+  using T = FwdWgTile<C, BK, NS, WGS>;
   constexpr int H = T::H, NB = (BK + 127) / 128;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm =
@@ -728,13 +771,9 @@ fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
   uint64_t* qbar = empty + NS;
 
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
-  const int lane = tid & 31, g = lane >> 2, tq4 = lane & 3;
-  const int r0 = 16 * (t >> 5) + g;  // accumulator rows r0, r0 + 8
-  const int sw = r0 & 7;             // their 128-byte swizzle phase
-  const int b = blockIdx.y, qw = blockIdx.x * T::BQ + wg * 64;
+  const int b = blockIdx.y, q0 = blockIdx.x * T::BQ;
   const int nk = (lk + BK - 1) / BK;
-  const float* biasb = bias + size_t(b) * lk;
-  auto load_stage = [&](int it) {  // thread 0
+  auto load_stage = [&](int it) {  // one thread
     const int s = it % NS;
     bar_expect_tx(&full[s], T::stage_bytes);
 #pragma unroll
@@ -745,30 +784,58 @@ fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
                   it * BK, b);
     }
   };
+  // the block's q tiles once, then the first NS (or, from the producer
+  // warp, all) key tiles, each stage once its consumers released it
+  auto produce = [&](int upto) {  // one thread
+    bar_expect_tx(qbar, WGS * H * kTile);
+#pragma unroll
+    for (int w = 0; w < WGS; ++w)
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        tma_load_3d(sm + T::Q + (w * H + h) * kTile, &tq, qbar, 64 * h,
+                    q0 + 64 * w, b);
+    for (int it = 0; it < upto; ++it) {
+      if (it >= NS) bar_wait(&empty[it % NS], (it / NS - 1) & 1);
+      load_stage(it);
+    }
+  };
 
   if (tid == 0) {
     for (int s = 0; s < NS; ++s) {
       bar_init(&full[s], 1);
-      bar_init(&empty[s], 4 * kConsumers);  // one arrival a consumer warp
+      bar_init(&empty[s], 4 * WGS);  // one arrival a consumer warp
     }
     bar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (tid == 0) {  // the block's q tiles once; the first NS key tiles
-    bar_expect_tx(qbar, kConsumers * H * kTile);
-#pragma unroll
-    for (int w = 0; w < kConsumers; ++w)
-#pragma unroll
-      for (int h = 0; h < H; ++h)
-        tma_load_3d(sm + T::Q + (w * H + h) * kTile, &tq, qbar, 64 * h,
-                    blockIdx.x * T::BQ + 64 * w, b);
-    for (int it = 0; it < NS && it < nk; ++it) load_stage(it);
+
+  if constexpr (kProducerWarp) {
+    if (wg == WGS) {  // the producer warpgroup: one thread loads
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+      if (t == 0) produce(nk);
+      return;
+    }
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                     T::consumer_regs)
+                 : "memory");
+  } else {
+    if (tid == 0) produce(nk < NS ? nk : NS);
   }
 
+  const int lane = tid & 31, g = lane >> 2, tq4 = lane & 3;
+  const int r0 = 16 * (t >> 5) + g;  // accumulator rows r0, r0 + 8
+  const int sw = r0 & 7;             // their 128-byte swizzle phase
+  const int qw = q0 + wg * 64;
+  const float* biasb = bias + size_t(b) * lk;
   unsigned char* qsw = sm + T::Q + wg * H * kTile;  // this warpgroup's q
   float* bsw = reinterpret_cast<float*>(sm + T::BIAS) + wg * 2 * BK;
-  const int bar_id = 1 + wg;
+  const int bar_id = 1 + wg;  // this warpgroup's 128 threads
+  // ping-pong: warpgroup wg issues its products after `bar.sync 1 + WGS +
+  // wg` and hands the tensor cores over to the next warpgroup, round
+  // robin, by `bar.arrive` on that one's barrier; warpgroup 0 goes first
+  const int tc_mine = 1 + WGS + wg, tc_next = 1 + WGS + (wg + 1) % WGS;
+  if (kPingPong && wg == WGS - 1) tc_arrive(1 + WGS);
 
   // q * qmul rounded to bf16 in place, as the TPU kernel rounds it (JAX's
   // weak typing): the scaling is elementwise, so the swizzle does not
@@ -795,87 +862,144 @@ fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int i = 0; i < 32; ++i) oacc[h][i] = 0.f;
   float l0 = 0.f, l1 = 0.f;  // row sums of rows r0 and r0 + 8 (this part)
+  float st[BK / 2];          // S of key tile j, then its p in f32
+  uint32_t pa[BK / 4];       // p of key tile j - 1 as bf16 A fragments
 
-  for (int it = 0; it < nk; ++it) {
-    const int s = it % NS, k0 = it * BK;
-    float* bt = bsw + (it & 1) * BK;
-    // This tile's bias by plain loads, issued before the wait so that
-    // they land while it waits for its tiles (a TMA map needs 16-byte
-    // strides, which a bias row of 4 Lk bytes denies). Keys past lk get
-    // -inf: with their zero-filled K rows, p = exp2(-inf) = 0.
-    float bv[NB];
+  // Tile j's bias by plain loads into registers, one key a thread,
+  // issued a step ahead so that they land meanwhile (a TMA map needs
+  // 16-byte strides, which a bias row of 4 Lk bytes denies). Keys past lk
+  // get -inf: with their zero-filled K rows, p = exp2(-inf) = 0.
+  float bv[NB];
+  auto load_bias = [&](int j) {
 #pragma unroll
     for (int n = 0; n < NB; ++n) {
       const int i = t + 128 * n;
-      bv[n] = i < BK && k0 + i < lk ? biasb[k0 + i]
-                                    : __int_as_float(0xff800000);
+      bv[n] = i < BK && j * BK + i < lk ? biasb[j * BK + i]
+                                        : __int_as_float(0xff800000);
     }
-    bar_wait(&full[s], (it / NS) & 1);
+  };
+  // Waits for tile j's K and V, and moves its bias to shared memory.
+  auto wait_tile = [&](int j) {
+    float* bt = bsw + (j & 1) * BK;
+    bar_wait(&full[j % NS], (j / NS) & 1);
 #pragma unroll
     for (int n = 0; n < NB; ++n)
       if (t + 128 * n < BK) bt[t + 128 * n] = bv[n];
-    // this buffer's readers two steps back are past this step's sync,
-    // and the sync makes the bias (and, first time, q * qmul) visible
+    // this buffer's readers two tiles back are past this sync, and the
+    // sync makes the bias (and, first time, q * qmul) visible
     wg_sync(bar_id);
-
-    // S = (q*qmul) K^T: 64 queries x BK keys; a k-step is 16 channels,
-    // 32 bytes along a region's line
-    float st[BK / 2];
+    load_bias(j + 1);
+  };
+  // This warpgroup's turn at the tensor cores (ping-pong): wait for it,
+  // issue the products, hand over. `last`: the last warpgroup's last turn
+  // hands over to no one, so that every bar.sync meets its arrivals.
+  auto turn = [&]() {
+    if (kPingPong) tc_sync(tc_mine);
     fence_acc(st);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < C / 16; ++kk) {
-      const int o = (kk >> 2) * kTile + 32 * (kk & 3);
-      wgmma_scores<BK>(st, sw128_desc(qsw + o),
-                       sm + T::K + (s * H + (kk >> 2)) * T::KT +
-                           32 * (kk & 3),
-                       kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait();
-    fence_acc(st);
-
-    // p = exp2(min(s + bias, 60)) [* valid] in f32 for the row sums, and
-    // as bf16 A fragments (pa) for P V
-    uint32_t pa[BK / 4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      const float2 b2 = *reinterpret_cast<const float2*>(bt + 8 * j + 2 * tq4);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float bb = (e & 1) ? b2.y : b2.x;
-        float p = ex2(clamp_hi(st[4 * j + e] + bb));
-        if (USE_VALID) p *= (bb > kValidThreshold) ? 1.f : 0.f;
-        if (e < 2) l0 += p; else l1 += p;
-        st[4 * j + e] = p;
-      }
-      pa[2 * j] = pack_bf16(st[4 * j], st[4 * j + 1]);
-      pa[2 * j + 1] = pack_bf16(st[4 * j + 2], st[4 * j + 3]);
-    }
-
-    // O += P V: A = P from registers, B = the V tile read MN-major, 16
-    // keys (2048 bytes) a k-step, 64 channels a product
 #pragma unroll
     for (int h = 0; h < H; ++h) fence_acc(oacc[h]);
     wgmma_fence();
+  };
+  auto hand_over = [&](bool last) {
+    if (kPingPong && (wg != WGS - 1 || !last)) tc_arrive(tc_next);
+  };
+  // S_j = (q*qmul) K_j^T: 64 queries x BK keys; a k-step is 16 channels,
+  // 32 bytes along a region's line
+  auto issue_s = [&](int j) {
+    const unsigned char* kt = sm + T::K + (j % NS) * H * T::KT;
+#pragma unroll
+    for (int kk = 0; kk < C / 16; ++kk)
+      wgmma_scores<BK>(st,
+                       sw128_desc(qsw + (kk >> 2) * kTile + 32 * (kk & 3)),
+                       kt + (kk >> 2) * T::KT + 32 * (kk & 3), kk > 0);
+    wgmma_commit();
+  };
+  // O += P_j V_j: A = P from registers, B = the V tile read MN-major, 16
+  // keys (2048 bytes) a k-step, 64 channels a product
+  auto issue_pv = [&](int j) {
+    const unsigned char* vt = sm + T::V + (j % NS) * H * T::KT;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
       for (int h = 0; h < H; ++h)
         wgmma_rs(oacc[h], pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
-                 pa[4 * kk + 3],
-                 sw128_desc(sm + T::V + (s * H + h) * T::KT + 2048 * kk));
+                 pa[4 * kk + 3], sw128_desc(vt + h * T::KT + 2048 * kk));
     wgmma_commit();
-    wgmma_wait();
+  };
+  // p = exp2(min(s + bias, 60)) [* valid] in f32, summed into l (two
+  // partial sums a row, to halve the chain of dependent adds)
+  float l0b = 0.f, l1b = 0.f;
+  auto softmax = [&](int j) {
+    fence_acc(st);
+    const float* bt = bsw + (j & 1) * BK;
+#pragma unroll
+    for (int jj = 0; jj < BK / 8; ++jj) {
+      const float2 b2 = *reinterpret_cast<const float2*>(bt + 8 * jj +
+                                                         2 * tq4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float bb = (e & 1) ? b2.y : b2.x;
+        float p = ex2(clamp_hi(st[4 * jj + e] + bb));
+        if (USE_VALID) p *= (bb > kValidThreshold) ? 1.f : 0.f;
+        float& l = e < 2 ? (jj & 1 ? l0b : l0) : (jj & 1 ? l1b : l1);
+        l += p;
+        st[4 * jj + e] = p;
+      }
+    }
+  };
+  // P_j as bf16 A fragments, once the last P V has read the old ones
+  auto pack = [&]() {
+#pragma unroll
+    for (int jj = 0; jj < BK / 8; ++jj) {
+      pa[2 * jj] = pack_bf16(st[4 * jj], st[4 * jj + 1]);
+      pa[2 * jj + 1] = pack_bf16(st[4 * jj + 2], st[4 * jj + 3]);
+    }
+  };
+  // once P_j V_j is done, this warp leaves tile j's stage (without a
+  // producer warpgroup thread 0 then refills it)
+  auto release = [&](int j) {
 #pragma unroll
     for (int h = 0; h < H; ++h) fence_acc(oacc[h]);
-    if (lane == 0) bar_arrive(&empty[s]);  // this warp is done with s
-
-    if (tid == 0 && it + NS < nk) {  // refill stage s once every warp left it
-      bar_wait(&empty[s], (it / NS) & 1);
-      load_stage(it + NS);
+    if (lane == 0) bar_arrive(&empty[j % NS]);
+    if constexpr (!kProducerWarp) {
+      if (tid == 0 && j + NS < nk) {
+        bar_wait(&empty[j % NS], (j / NS) & 1);
+        load_stage(j + NS);
+      }
     }
+  };
+
+  // Step j issues S_j and P_{j-1} V_{j-1} in one turn, then runs tile j's
+  // softmax while P_{j-1} V_{j-1} is still in flight. The first and last
+  // steps are peeled, so that no product is issued on a divergent path
+  // (ptxas serialises every wgmma of a kernel that does: C7520).
+  load_bias(0);
+  wait_tile(0);
+  turn();
+  issue_s(0);
+  hand_over(false);
+  wgmma_wait<0>();
+  softmax(0);
+  pack();
+  for (int j = 1; j < nk; ++j) {
+    wait_tile(j);
+    turn();
+    issue_s(j);
+    issue_pv(j - 1);
+    hand_over(false);
+    wgmma_wait<1>();  // S_j (groups complete in order)
+    softmax(j);
+    wgmma_wait<0>();  // P_{j-1} V_{j-1}
+    release(j - 1);
+    pack();
   }
+  turn();
+  issue_pv(nk - 1);
+  hand_over(true);
+  wgmma_wait<0>();
+  release(nk - 1);
+  l0 += l0b;
+  l1 += l1b;
 
   // The four threads of a quad hold disjoint columns of the same rows.
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -992,16 +1116,15 @@ bool map_3d(EncodeTiled enc, CUtensorMap* m, const void* base, int c, int l,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// C = 128 takes a two-stage ring: a third would pass 227 KB of shared
-// memory.
 template <int C, bool UV>
 cudaError_t run_wgmma(const void* q, const void* k, const void* v,
                       const void* bias, void* o, float* lse, int b, int lq,
                       int lk, float qmul, cudaStream_t stream) {
   constexpr int BK = C == 64 ? kKeys64 : kKeys128;
   constexpr int NS = C == 64 ? kStages64 : kStages128;
-  using T = FwdWgTile<C, BK, NS>;
-  auto kernel = &fwd_nomax_wgmma<C, BK, NS, UV>;
+  constexpr int WGS = kConsumers;
+  using T = FwdWgTile<C, BK, NS, WGS>;
+  auto kernel = &fwd_nomax_wgmma<C, BK, NS, WGS, UV>;
   static std::atomic<uint32_t> set_on{0};
   cudaError_t err = allow_smem(kernel, T::smem, set_on);
   if (err != cudaSuccess) return err;
@@ -1014,7 +1137,7 @@ cudaError_t run_wgmma(const void* q, const void* k, const void* v,
                   map_3d(enc, &mo, o, C, lq, b, 64);
   if (!ok) return cudaErrorInvalidValue;
   dim3 grid((lq + T::BQ - 1) / T::BQ, b);
-  kernel<<<grid, 128 * kConsumers, T::smem, stream>>>(
+  kernel<<<grid, T::threads, T::smem, stream>>>(
       mq, mk, mv, mo, static_cast<const float*>(bias), lse, lq, lk, qmul);
   return cudaGetLastError();
 }

@@ -5,23 +5,34 @@ tools/fwd_sweep.py).
 Each variant is the committed source with one text substitution, built
 with the library's own nvcc flags, held against the plain version and
 timed with CUDA events through K1's C entry, in alternating order over
-the rounds, at two shapes of the ADE serving forward (batch 8, bf16):
+the rounds, at three shapes of the ADE serving forward (batch 8, bf16):
 
   attn6   16,384 queries x 9,216 compacted key slots, C 64, no use_valid
+  attn1   4,096 queries x 2,560 compacted key slots, C 128, no use_valid
   attn2   1,024 queries x 1,024 keys, C 256, use_valid
 
     python -m maskunet_tpu_torch.tools.fwd_ab [--rounds 2]
 
 Variants (bf16 at C = 64 and 128 runs the wgmma body unless named
 otherwise; C = 256 runs the mma.sync body in all of them):
-  source     the committed kernel (wgmma, two warpgroups of 64 queries a
-             block, 128 keys a step, a three-stage TMA ring at C 64)
+  source     the committed kernel (wgmma, a producer warpgroup and two
+             consumer warpgroups of 64 queries a block, a four-stage TMA
+             ring, 128 keys a step at C 64 and 64 at C 128)
   mma_sync   the mma.sync body the source keeps for C = 256, at C = 64
              and 128 too: the kernel before the wgmma body, in the same run
+  producer0  no producer warpgroup: thread 0 refills each stage after its
+             own step (the first wgmma design's loads)
+  pingpong   the consumer warpgroups take turns at the tensor cores
+             (named barriers), so that one's softmax overlaps the other's
+             products
   stages2    a two-stage K / V ring at C 64
-  stages4    a four-stage K / V ring at C 64
+  stages3    a three-stage K / V ring at C 64
   keys64     64 keys a step at C 64 (m64n64k16 scores)
-  keys256    256 keys a step at C 64 (two m64n128k16 score products)
+  keys256    256 keys a step at C 64 (two m64n128k16 score products) and
+             a two-stage ring (shared memory holds no more)
+  wg3        three consumer warpgroups (192 queries) a block
+  c128_keys128  128 keys a step and a two-stage ring at C 128 (shared
+             memory holds no more)
 
 It prints one JSON line per variant built (ptxas's registers and spills
 of the C = 64 bf16 instantiations) and per variant timed.
@@ -42,8 +53,13 @@ from maskunet_tpu_torch.ops import flash_kernels as fk
 _WGMMA_C = ("constexpr bool wgmma_body(int c) "
             "{ return c == 64 || c == 128; }")
 _NO_WGMMA = "constexpr bool wgmma_body(int c) { return false; }"
-_STAGES = "constexpr int kStages64 = 3;"
+_PRODUCER = "constexpr bool kProducerWarp = true;"
+_PINGPONG = "constexpr bool kPingPong = false;"
+_STAGES = "constexpr int kStages64 = 4;"
 _KEYS = "constexpr int kKeys64 = 128;"
+_WGS = "constexpr int kConsumers = 2;"
+_KEYS128 = "constexpr int kKeys128 = 64;"
+_STAGES128 = "constexpr int kStages128 = 4;"
 
 
 def _sub(text: str, *pairs: tuple[str, str]) -> str:
@@ -58,10 +74,19 @@ def variants(src: str) -> dict[str, str]:
     """{name: CUDA source} of the variants of the module docstring."""
     return {"source": _sub(src),
             "mma_sync": _sub(src, (_WGMMA_C, _NO_WGMMA)),
-            "stages2": _sub(src, (_STAGES, _STAGES.replace("3", "2"))),
-            "stages4": _sub(src, (_STAGES, _STAGES.replace("3", "4"))),
-            "keys64": _sub(src, (_KEYS, _KEYS.replace("128", "64"))),
-            "keys256": _sub(src, (_KEYS, _KEYS.replace("128", "256")))}
+            "producer0": _sub(src, (_PRODUCER, _PRODUCER.replace("true",
+                                                                "false"))),
+            "pingpong": _sub(src, (_PINGPONG, _PINGPONG.replace(
+                "false", "true"))),
+            "stages2": _sub(src, (_STAGES, _STAGES.replace("= 4", "= 2"))),
+            "stages3": _sub(src, (_STAGES, _STAGES.replace("= 4", "= 3"))),
+            "keys64": _sub(src, (_KEYS, _KEYS.replace("= 128", "= 64"))),
+            "keys256": _sub(src, (_KEYS, _KEYS.replace("= 128", "= 256")),
+                            (_STAGES, _STAGES.replace("= 4", "= 2"))),
+            "wg3": _sub(src, (_WGS, _WGS.replace("= 2", "= 3"))),
+            "c128_keys128": _sub(
+                src, (_KEYS128, _KEYS128.replace("= 64", "= 128")),
+                (_STAGES128, _STAGES128.replace("= 4", "= 2")))}
 
 
 def _build(texts: dict[str, str]) -> dict:
@@ -126,6 +151,7 @@ def main() -> int:
               flush=True)
 
     shapes = {"attn6": _inputs(16384, 64, False, 0),
+              "attn1": _inputs(4096, 128, False, 2),
               "attn2": _inputs(1024, 256, True, 1)}
     want = {s: fk.flash_fwd_nomax_reference(q, k, v, bias, 1.0, uv)
             for s, (q, k, v, bias, uv) in shapes.items()}

@@ -258,20 +258,37 @@ def test_backward_body_channels_match_the_kernel_source():
 
 def test_fwd_ab_variants_apply_to_the_kernel_source():
     """Every K1/K2 variant of the forward A/B tool is one substitution of
-    the committed source away: the mma.sync body at C 64 and 128, a ring
-    of two or four stages, 64 or 256 keys a step."""
+    the committed source away: the mma.sync body at C 64 and 128, thread 0
+    as the producer, ping-pong, a ring of two or three stages, 64 or 256
+    keys a step, three consumer warpgroups, 128 keys a step at C 128."""
     from maskunet_tpu_torch.tools import fwd_ab
     src = tk.SOURCES["flash_fwd_nomax"].read_text()
     texts = fwd_ab.variants(src)
-    assert set(texts) == {"source", "mma_sync", "stages2", "stages4",
-                          "keys64", "keys256"}
+    assert set(texts) == {"source", "mma_sync", "producer0", "pingpong",
+                          "stages2", "stages3", "keys64", "keys256",
+                          "wg3", "c128_keys128"}
     assert texts["source"] == src
     assert len(set(texts.values())) == len(texts)
-    assert "return false;" in texts["mma_sync"]
+    for name, line in (("mma_sync", "{ return false; }"),
+                       ("producer0", "kProducerWarp = false;"),
+                       ("pingpong", "kPingPong = true;"),
+                       ("stages2", "kStages64 = 2;"),
+                       ("stages3", "kStages64 = 3;"),
+                       ("keys64", "kKeys64 = 64;"),
+                       ("keys256", "kKeys64 = 256;"),
+                       ("keys256", "kStages64 = 2;"),
+                       ("wg3", "kConsumers = 3;"),
+                       ("c128_keys128", "kKeys128 = 128;")):
+        assert line in texts[name] and line not in src
     for name, old in (("mma_sync", fwd_ab._WGMMA_C),
+                      ("producer0", fwd_ab._PRODUCER),
+                      ("pingpong", fwd_ab._PINGPONG),
                       ("stages2", fwd_ab._STAGES),
-                      ("stages4", fwd_ab._STAGES),
-                      ("keys64", fwd_ab._KEYS), ("keys256", fwd_ab._KEYS)):
+                      ("stages3", fwd_ab._STAGES),
+                      ("keys64", fwd_ab._KEYS), ("keys256", fwd_ab._KEYS),
+                      ("wg3", fwd_ab._WGS),
+                      ("c128_keys128", fwd_ab._KEYS128),
+                      ("c128_keys128", fwd_ab._STAGES128)):
         assert old not in texts[name]
         with pytest.raises(ValueError, match="no longer holds"):
             fwd_ab.variants(src.replace(old, ""))
