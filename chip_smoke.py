@@ -17,8 +17,8 @@ final result):
    plus a ragged shape, a fully-masked row (must give 0) and a NaN-poisoned
    K row (must give NaN); in bf16 also, at each C its wgmma body takes,
    with and without use_valid, at shapes whose Lq is no multiple of the
-   128-query block (or below it) and whose Lk is no multiple of the
-   128-key step, batch 2-3: the edges of its TMA maps and store.
+   128-query block (or below it) and whose Lk is no multiple of the key
+   step, batch 2-3: the edges of its TMA maps and store.
 3. kernel_lse, kernel_bwd: K2 `flash_fwd_nomax_lse` (o and lse, K1's
    cases) and K4 `flash_bwd` (dq, dk, dv) against their plain versions at
    the same shapes and cases, both dtypes; K4 also, at each C its wgmma
@@ -341,11 +341,9 @@ def bwd_edge_cases(gen, dtype):
             yield f"edge_c{c}_b{b}_q{lq}_k{lk}", q, k, v, bias, uv, None
 
 
-# (batch, Lq, Lk) of K1's and K2's edge shapes: Lq past a multiple of the
-# 128-query block or below it, Lk past a multiple of the 128-key step or
-# below it
-FWD_EDGES = ((3, 200, 150), (3, 37, 200), (3, 50, 700), (2, 1000, 300),
-             (3, 64, 40), (3, 129, 129))
+# (batch, Lq, Lk) of K1's and K2's edge shapes: K4's, and one past the
+# 128-query block and the key step (128 keys at C 64, 64 at C 128)
+FWD_EDGES = tuple(e[:3] for e in BWD_EDGES) + ((3, 129, 129),)
 
 
 def fwd_edge_cases(gen):

@@ -280,9 +280,11 @@ def _launch_batched(name: str, tensors: tuple, *rest,
     of `tensors` ([B, ...], contiguous) at the chunk's first row, the
     chunk's row count, then `rest`. Returns the number of launches."""
     b = tensors[0].shape[0]
+    # pointers by arithmetic, not slices: the wrappers are on the host's
+    # critical path, and most calls are one chunk
+    ptrs = [(t.data_ptr(), t.stride(0) * t.element_size()) for t in tensors]
     for i in range(0, b, rows):
-        _launch(name, tensors[0].device,
-                *(t[i:i + rows].data_ptr() for t in tensors),
+        _launch(name, tensors[0].device, *(p + i * row for p, row in ptrs),
                 min(rows, b - i), *rest)
     return -(-b // rows)
 
