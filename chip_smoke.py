@@ -342,7 +342,7 @@ def bwd_edge_cases(gen, dtype):
 
 
 # (batch, Lq, Lk) of K1's and K2's edge shapes: K4's, and one past the
-# 128-query block and the key step (128 keys at C 64, 64 at C 128)
+# 128-query block and the key step (128 keys at C 64, 64 above)
 FWD_EDGES = tuple(e[:3] for e in BWD_EDGES) + ((3, 129, 129),)
 
 

@@ -28,15 +28,15 @@
 // the score fragments become the A operand of P.V in registers, so p never
 // touches shared or device memory. Three bodies:
 //
-// bf16 at C = 64 and 128 (`fwd_nomax_wgmma`; attn1, attn4, attn5 and
-// attn6 of the model, 0.98 of the work): Hopper's warpgroup products, so
-// that both products can run at the tensor cores' full rate, fed by TMA
-// and mbarriers, with no block-wide barrier in the sweep.
+// bf16 (`fwd_nomax_wgmma`; all six attention layers of the model):
+// Hopper's warpgroup products, so that both products can run at the
+// tensor cores' full rate, fed by TMA and mbarriers, with no block-wide
+// barrier in the sweep.
 //
 //   * Each consumer warpgroup (4 warps) owns 64 queries; a block holds two
-//     (128 queries) and a producer warpgroup. Per step of BK keys (128 at
-//     C = 64, 64 at C = 128) and consumer warpgroup:
-//       S  = (q*qmul) K^T   wgmma m64n128k16 (m64n64k16 at C = 128), A =
+//     (128 queries; one at C = 256) and a producer warpgroup. Per step of
+//     BK keys (128 at C = 64, 64 above) and consumer warpgroup:
+//       S  = (q*qmul) K^T   wgmma m64n128k16 (m64n64k16 at C >= 128), A =
 //                           the q tile, B = the K tile, both K-major from
 //                           shared memory
 //       O += P V            wgmma m64n64k16, A = P packed to bf16 straight
@@ -44,25 +44,27 @@
 //                           tile read MN-major (the transpose bit), one
 //                           product per 64 channels
 //     S and O stay f32 in registers (64 + 32 a thread at C = 64, 32 + 64
-//     at C = 128), so the softmax runs on the S registers.
+//     at C = 128, 32 + 128 at C = 256), so the softmax runs on the S
+//     registers.
 //   * Warp specialisation. One thread of the producer warpgroup streams K
-//     and V (3-D maps, box 64 channels x BK keys a region) through a
-//     four-stage ring of mbarrier-tracked stages; each consumer warp
-//     releases a stage on an `empty` mbarrier once its products have read
-//     it. K and V are read once a block, not once a warp. The producer
-//     gives up registers (`setmaxnreg` 24) to the consumers (240), though
-//     ptxas still allocates each thread at most 65536 / 384 = 168. The q
-//     tile comes once by TMA and is scaled in place. Every tile is in the
-//     128-byte swizzle both TMA and the wgmma descriptors name, as
-//     64-channel regions of one 128-byte line a row.
+//     and V (3-D maps, box 64 channels x BK keys a region) through a ring
+//     of mbarrier-tracked stages (four, three at C = 256: shared memory);
+//     each consumer warp releases a stage on an `empty` mbarrier once its
+//     products have read it. K and V are read once a block, not once a
+//     warp. The producer gives up registers (`setmaxnreg` 24) to the
+//     consumers (240), though ptxas still allocates each thread at most
+//     65536 / threads (168 with two consumer warpgroups). The q tile comes
+//     once by TMA and is scaled in place. Every tile is in the 128-byte
+//     swizzle both TMA and the wgmma descriptors name, as 64-channel
+//     regions of one 128-byte line a row.
 //   * Pipelining. Step j issues S_j and P_{j-1} V_{j-1} together, then
 //     runs tile j's softmax (exp2 on the SFUs; the add, clamp, sum and
-//     pack on the ALUs) while P_{j-1} V_{j-1} is still in flight, and the
-//     two warpgroups' steps interleave freely. (Ping-pong, the warpgroups
-//     taking turns at the tensor cores by named barriers, is kept behind
-//     `kPingPong` for the A/B tool: it measured slower.) The first and
-//     last steps are peeled so that no product is issued on a divergent
-//     path (ptxas then serialises every wgmma: C7520).
+//     pack on the ALUs) while P_{j-1} V_{j-1} is still in flight. At C =
+//     64 the two warpgroups' steps interleave freely; at C = 128 they take
+//     turns at the tensor cores by named barriers (ping-pong), which paid
+//     only there. The first and last steps are peeled so that no product
+//     is issued on a divergent path (ptxas then serialises every wgmma:
+//     C7520).
 //   * The bias of each key tile comes by plain loads, one key a thread,
 //     issued a step ahead into registers and moved to a double buffer of
 //     the warpgroup's in shared memory (a TMA map needs 16-byte strides,
@@ -79,11 +81,11 @@
 //     through cudaGetDriverEntryPoint (no -lcuda). Every key slot is read,
 //     masked or not: a NaN in a masked slot's k still gives NaN, as in JAX.
 //
-// bf16 at C = 256 (`fwd_nomax_bf16`, and C = 64 and 128 in the A/B tool's
-// `mma_sync` variant, and a call with no key): the first design, mma.sync
-// m16n8k16, 16 query rows a warp (8 warps at C = 64, 4 above); K and V
-// tiles stream through a two-stage cp.async ring, and ldmatrix reads them
-// (.trans gives V's B operand without a transposing copy).
+// bf16 with no key, and every C in the A/B tool's `mma_sync` variant
+// (`fwd_nomax_bf16`): the first design, mma.sync m16n8k16, 16 query rows a
+// warp (8 warps at C = 64, 4 above); K and V tiles stream through a
+// two-stage cp.async ring, and ldmatrix reads them (.trans gives V's B
+// operand without a transposing copy).
 //
 // f32 (`fwd_nomax_f32`): exact f32 (no TF32) on plain FMA, 64x32 tiles.
 //
@@ -471,30 +473,36 @@ fwd_nomax_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at C = 64 and 128: warpgroup products (wgmma) fed by TMA through an
-// mbarrier ring. See the header for the design.
+// bf16: warpgroup products (wgmma) fed by TMA through an mbarrier ring.
+// See the header for the design.
 // ---------------------------------------------------------------------------
 
-// C values whose bf16 forward runs `fwd_nomax_wgmma`; the others run
-// `fwd_nomax_bf16`.
-constexpr bool wgmma_body(int c) { return c == 64 || c == 128; }
+// C values whose bf16 forward runs `fwd_nomax_wgmma`; the others (and a
+// call with no key) run `fwd_nomax_bf16`.
+constexpr bool wgmma_body(int c) { return c == 64 || c == 128 || c == 256; }
 
 constexpr int kTile = 64 * 128;   // 64 rows of one 128-byte line
-// A warpgroup of its own streams K and V (false: thread 0 refills each
-// stage after its own step); the consumer warpgroups take turns at the
-// tensor cores (ping-pong) when true. Both are the A/B tool's switches.
+// The schedule and tile shapes per C, chosen by tools/fwd_ab.py's A/B on
+// the card. A warpgroup of its own streams K and V (false: thread 0
+// refills each stage after its own step); the consumer warpgroups take
+// turns at the tensor cores (ping-pong) where it paid: at C = 128, where
+// the products outweigh the exp2. Three consumer warpgroups cap a thread
+// at 128 registers (ptxas allocates 65536 / threads whatever `setmaxnreg`
+// grants later), where use_valid's body spills; at C = 256 one consumer
+// warpgroup a block keeps its 128 O accumulators in registers and makes
+// twice the blocks of two. 64 keys a step at C >= 128 keep S and P small
+// beside O.
 constexpr bool kProducerWarp = true;
-constexpr bool kPingPong = false;
-// The tile shapes, chosen by tools/fwd_ab.py's A/B on the card: three
-// consumer warpgroups cap a thread at 128 registers (ptxas allocates for
-// 65536 / threads whatever `setmaxnreg` grants later), where use_valid's
-// body spills; 64 keys a step at C = 128 keep its S and P small beside
-// its 64 O accumulators.
+constexpr bool kPingPong64 = false;
+constexpr bool kPingPong128 = true;
 constexpr int kConsumers = 2;     // consumer warpgroups (64 queries each)
+constexpr int kConsumers256 = 1;  // consumer warpgroups, C 256
 constexpr int kKeys64 = 128;      // keys a step, C 64
 constexpr int kKeys128 = 64;      // keys a step, C 128
+constexpr int kKeys256 = 64;      // keys a step, C 256
 constexpr int kStages64 = 4;      // depth of the K / V ring, C 64
 constexpr int kStages128 = 4;     // depth of the K / V ring, C 128
+constexpr int kStages256 = 3;     // depth of the K / V ring, C 256
 
 __device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -725,7 +733,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
 // Shared memory of a block: byte offsets from a 1024-byte-aligned base.
 // A [rows][C] bf16 tile is H = C / 64 regions of [rows][64 channels], one
 // 128-byte line a row (the widest line TMA's 128-byte swizzle takes).
-template <int C, int BK, int NS, int WGS>
+template <int C, int BK, int NS, int WGS, bool PW>
 struct FwdWgTile {
   static constexpr int H = C / 64;                    // regions a row
   static constexpr int BQ = 64 * WGS;                 // queries a block
@@ -738,7 +746,7 @@ struct FwdWgTile {
   // threads a block, and the registers of each consumer thread once the
   // producer warpgroup has given up all but 24 of its own (a multiple of
   // 8, at most 240)
-  static constexpr int threads = 128 * (WGS + (kProducerWarp ? 1 : 0));
+  static constexpr int threads = 128 * (WGS + (PW ? 1 : 0));
   static constexpr int consumer_regs =
       (65536 - 128 * 24) / (128 * WGS) / 8 * 8 > 240
           ? 240
@@ -750,18 +758,18 @@ struct FwdWgTile {
 };
 
 // One block: batch row blockIdx.y, queries blockIdx.x * BQ ..; consumer
-// warpgroup wg (0 or 1) owns queries wg * 64 .. wg * 64 + 63 of them, and
-// with kProducerWarp a third warpgroup streams the tiles. q, k, v, o: 3-D
+// warpgroup wg owns queries wg * 64 .. wg * 64 + 63 of them, and with PW
+// the last warpgroup streams the tiles; PP: ping-pong. q, k, v, o: 3-D
 // maps (C, L, B), box (64, 64 or BK, 1), 128-byte swizzle.
-template <int C, int BK, int NS, int WGS, bool USE_VALID>
-__global__ void __launch_bounds__(FwdWgTile<C, BK, NS, WGS>::threads, 1)
+template <int C, int BK, int NS, int WGS, bool PW, bool PP, bool USE_VALID>
+__global__ void __launch_bounds__(FwdWgTile<C, BK, NS, WGS, PW>::threads, 1)
 fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
                 const __grid_constant__ CUtensorMap to,
                 const float* __restrict__ bias, float* __restrict__ lse,
                 int lq, int lk, float qmul) {
-  using T = FwdWgTile<C, BK, NS, WGS>;
+  using T = FwdWgTile<C, BK, NS, WGS, PW>;
   constexpr int H = T::H, NB = (BK + 127) / 128;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm =
@@ -810,7 +818,7 @@ fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  if constexpr (kProducerWarp) {
+  if constexpr (PW) {
     if (wg == WGS) {  // the producer warpgroup: one thread loads
       asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
       if (t == 0) produce(nk);
@@ -835,7 +843,7 @@ fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
   // wg` and hands the tensor cores over to the next warpgroup, round
   // robin, by `bar.arrive` on that one's barrier; warpgroup 0 goes first
   const int tc_mine = 1 + WGS + wg, tc_next = 1 + WGS + (wg + 1) % WGS;
-  if (kPingPong && wg == WGS - 1) tc_arrive(1 + WGS);
+  if (PP && wg == WGS - 1) tc_arrive(1 + WGS);
 
   // q * qmul rounded to bf16 in place, as the TPU kernel rounds it (JAX's
   // weak typing): the scaling is elementwise, so the swizzle does not
@@ -894,14 +902,14 @@ fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
   // issue the products, hand over. `last`: the last warpgroup's last turn
   // hands over to no one, so that every bar.sync meets its arrivals.
   auto turn = [&]() {
-    if (kPingPong) tc_sync(tc_mine);
+    if (PP) tc_sync(tc_mine);
     fence_acc(st);
 #pragma unroll
     for (int h = 0; h < H; ++h) fence_acc(oacc[h]);
     wgmma_fence();
   };
   auto hand_over = [&](bool last) {
-    if (kPingPong && (wg != WGS - 1 || !last)) tc_arrive(tc_next);
+    if (PP && (wg != WGS - 1 || !last)) tc_arrive(tc_next);
   };
   // S_j = (q*qmul) K_j^T: 64 queries x BK keys; a k-step is 16 channels,
   // 32 bytes along a region's line
@@ -961,7 +969,7 @@ fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int h = 0; h < H; ++h) fence_acc(oacc[h]);
     if (lane == 0) bar_arrive(&empty[j % NS]);
-    if constexpr (!kProducerWarp) {
+    if constexpr (!PW) {
       if (tid == 0 && j + NS < nk) {
         bar_wait(&empty[j % NS], (j / NS) & 1);
         load_stage(j + NS);
@@ -1120,11 +1128,12 @@ template <int C, bool UV>
 cudaError_t run_wgmma(const void* q, const void* k, const void* v,
                       const void* bias, void* o, float* lse, int b, int lq,
                       int lk, float qmul, cudaStream_t stream) {
-  constexpr int BK = C == 64 ? kKeys64 : kKeys128;
-  constexpr int NS = C == 64 ? kStages64 : kStages128;
-  constexpr int WGS = kConsumers;
-  using T = FwdWgTile<C, BK, NS, WGS>;
-  auto kernel = &fwd_nomax_wgmma<C, BK, NS, WGS, UV>;
+  constexpr int BK = C == 64 ? kKeys64 : C == 128 ? kKeys128 : kKeys256;
+  constexpr int NS = C == 64 ? kStages64 : C == 128 ? kStages128 : kStages256;
+  constexpr int WGS = C == 256 ? kConsumers256 : kConsumers;
+  constexpr bool PP = C == 64 ? kPingPong64 : C == 128 && kPingPong128;
+  using T = FwdWgTile<C, BK, NS, WGS, kProducerWarp>;
+  auto kernel = &fwd_nomax_wgmma<C, BK, NS, WGS, kProducerWarp, PP, UV>;
   static std::atomic<uint32_t> set_on{0};
   cudaError_t err = allow_smem(kernel, T::smem, set_on);
   if (err != cudaSuccess) return err;

@@ -239,7 +239,7 @@ def _entry(name: str):
 BWD_WGMMA_CHANNELS = (64, 128)
 # Channels whose bf16 K1 and K2 run the wgmma body (`wgmma_body` in
 # csrc/flash_fwd_nomax.cu; `flash_fwd_nomax_body` reads the library's).
-FWD_WGMMA_CHANNELS = (64, 128)
+FWD_WGMMA_CHANNELS = (64, 128, 256)
 _BODIES = {2: "wgmma", 1: "mma_sync"}
 
 

@@ -16,21 +16,25 @@ the rounds, at three shapes of the ADE serving forward (batch 8, bf16):
 Variants (bf16 at C = 64 and 128 runs the wgmma body unless named
 otherwise; C = 256 runs the mma.sync body in all of them):
   source     the committed kernel (wgmma, a producer warpgroup and two
-             consumer warpgroups of 64 queries a block, a four-stage TMA
-             ring, 128 keys a step at C 64 and 64 at C 128)
-  mma_sync   the mma.sync body the source keeps for C = 256, at C = 64
-             and 128 too: the kernel before the wgmma body, in the same run
+             consumer warpgroups of 64 queries a block, one at C 256; a
+             four-stage TMA ring, three at C 256; 128 keys a step at C 64
+             and 64 above; ping-pong at C 128)
+  mma_sync   the mma.sync body (the source keeps it for a call with no
+             key) at every C: the kernel before the wgmma body
+  c256_mma_sync  the mma.sync body at C = 256 only
   producer0  no producer warpgroup: thread 0 refills each stage after its
              own step (the first wgmma design's loads)
-  pingpong   the consumer warpgroups take turns at the tensor cores
-             (named barriers), so that one's softmax overlaps the other's
-             products
+  pingpong   at C 64 the consumer warpgroups take turns at the tensor
+             cores (named barriers), so that one's softmax overlaps the
+             other's products, as the source does at C 128
+  c128_no_pingpong  no ping-pong at C 128
   stages2    a two-stage K / V ring at C 64
   stages3    a three-stage K / V ring at C 64
   keys64     64 keys a step at C 64 (m64n64k16 scores)
   keys256    256 keys a step at C 64 (two m64n128k16 score products) and
              a two-stage ring (shared memory holds no more)
-  wg3        three consumer warpgroups (192 queries) a block
+  wg3        three consumer warpgroups (192 queries) a block at C 64
+             and 128
   c128_keys128  128 keys a step and a two-stage ring at C 128 (shared
              memory holds no more)
 
@@ -51,10 +55,13 @@ from maskunet_tpu_torch.ops import flash_attention as fa
 from maskunet_tpu_torch.ops import flash_kernels as fk
 
 _WGMMA_C = ("constexpr bool wgmma_body(int c) "
-            "{ return c == 64 || c == 128; }")
+            "{ return c == 64 || c == 128 || c == 256; }")
+_WGMMA_C_NO256 = ("constexpr bool wgmma_body(int c) "
+                  "{ return c == 64 || c == 128; }")
 _NO_WGMMA = "constexpr bool wgmma_body(int c) { return false; }"
 _PRODUCER = "constexpr bool kProducerWarp = true;"
-_PINGPONG = "constexpr bool kPingPong = false;"
+_PINGPONG = "constexpr bool kPingPong64 = false;"
+_PINGPONG128 = "constexpr bool kPingPong128 = true;"
 _STAGES = "constexpr int kStages64 = 4;"
 _KEYS = "constexpr int kKeys64 = 128;"
 _WGS = "constexpr int kConsumers = 2;"
@@ -74,10 +81,14 @@ def variants(src: str) -> dict[str, str]:
     """{name: CUDA source} of the variants of the module docstring."""
     return {"source": _sub(src),
             "mma_sync": _sub(src, (_WGMMA_C, _NO_WGMMA)),
+            "c256_mma_sync": _sub(src, (_WGMMA_C, _WGMMA_C_NO256)),
             "producer0": _sub(src, (_PRODUCER, _PRODUCER.replace("true",
                                                                 "false"))),
             "pingpong": _sub(src, (_PINGPONG, _PINGPONG.replace(
                 "false", "true"))),
+            "c128_no_pingpong": _sub(src, (_PINGPONG128,
+                                           _PINGPONG128.replace("true",
+                                                                "false"))),
             "stages2": _sub(src, (_STAGES, _STAGES.replace("= 4", "= 2"))),
             "stages3": _sub(src, (_STAGES, _STAGES.replace("= 4", "= 3"))),
             "keys64": _sub(src, (_KEYS, _KEYS.replace("= 128", "= 64"))),

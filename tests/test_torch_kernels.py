@@ -258,20 +258,24 @@ def test_backward_body_channels_match_the_kernel_source():
 
 def test_fwd_ab_variants_apply_to_the_kernel_source():
     """Every K1/K2 variant of the forward A/B tool is one substitution of
-    the committed source away: the mma.sync body at C 64 and 128, thread 0
-    as the producer, ping-pong, a ring of two or three stages, 64 or 256
-    keys a step, three consumer warpgroups, 128 keys a step at C 128."""
+    the committed source away: the mma.sync body at every C or at C 256,
+    thread 0 as the producer, ping-pong at C 64 and none at C 128, a ring
+    of two or three stages, 64 or 256 keys a step, three consumer
+    warpgroups, 128 keys a step at C 128."""
     from maskunet_tpu_torch.tools import fwd_ab
     src = tk.SOURCES["flash_fwd_nomax"].read_text()
     texts = fwd_ab.variants(src)
-    assert set(texts) == {"source", "mma_sync", "producer0", "pingpong",
+    assert set(texts) == {"source", "mma_sync", "c256_mma_sync",
+                          "producer0", "pingpong", "c128_no_pingpong",
                           "stages2", "stages3", "keys64", "keys256",
                           "wg3", "c128_keys128"}
     assert texts["source"] == src
     assert len(set(texts.values())) == len(texts)
     for name, line in (("mma_sync", "{ return false; }"),
+                       ("c256_mma_sync", "{ return c == 64 || c == 128; }"),
                        ("producer0", "kProducerWarp = false;"),
-                       ("pingpong", "kPingPong = true;"),
+                       ("pingpong", "kPingPong64 = true;"),
+                       ("c128_no_pingpong", "kPingPong128 = false;"),
                        ("stages2", "kStages64 = 2;"),
                        ("stages3", "kStages64 = 3;"),
                        ("keys64", "kKeys64 = 64;"),
@@ -281,8 +285,10 @@ def test_fwd_ab_variants_apply_to_the_kernel_source():
                        ("c128_keys128", "kKeys128 = 128;")):
         assert line in texts[name] and line not in src
     for name, old in (("mma_sync", fwd_ab._WGMMA_C),
+                      ("c256_mma_sync", fwd_ab._WGMMA_C),
                       ("producer0", fwd_ab._PRODUCER),
                       ("pingpong", fwd_ab._PINGPONG),
+                      ("c128_no_pingpong", fwd_ab._PINGPONG128),
                       ("stages2", fwd_ab._STAGES),
                       ("stages3", fwd_ab._STAGES),
                       ("keys64", fwd_ab._KEYS), ("keys256", fwd_ab._KEYS),
