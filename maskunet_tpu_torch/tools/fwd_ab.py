@@ -13,8 +13,7 @@ the rounds, at three shapes of the ADE serving forward (batch 8, bf16):
 
     python -m maskunet_tpu_torch.tools.fwd_ab [--rounds 2]
 
-Variants (bf16 at C = 64 and 128 runs the wgmma body unless named
-otherwise; C = 256 runs the mma.sync body in all of them):
+Variants (bf16 runs the wgmma body at every C unless named otherwise):
   source     the committed kernel (wgmma, a producer warpgroup and two
              consumer warpgroups of 64 queries a block, one at C 256; a
              four-stage TMA ring, three at C 256; 128 keys a step at C 64
