@@ -9,9 +9,9 @@ final result):
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions, the build of the kernel libraries from
    maskunet_tpu_torch/csrc (seconds, ptxas registers and spills; those of
-   K4's and of K1/K2's wgmma instantiations named, and 0 spill bytes
-   required: phases device_k4 and device_k1), and the body K4 and K1/K2
-   run in bf16 at each C (wgmma or mma_sync).
+   K4's, K1/K2's and K3/K7's wgmma instantiations named, and 0 spill bytes
+   required: phases device_k4, device_k1 and device_k3), and the body K4,
+   K1/K2 and K3 run in bf16 at each C (wgmma or mma_sync).
 2. kernel: K1 `flash_fwd_nomax` against its plain PyTorch version at the
    six serving attention shapes (batch 8, 128x128 images) in bf16 and f32,
    plus a ragged shape, a fully-masked row (must give 0) and a NaN-poisoned
@@ -51,8 +51,10 @@ final result):
    and K4 with `clamp=False` on K3's lse against their plain versions at
    the same shapes and cases, both dtypes, plus a fully-masked row without
    use_valid (K3 gives the mean of V) and exact scores far past the clamp
-   at 60 (where K4 clamped and unclamped must differ), and K4's edge
-   shapes.
+   at 60 (where K4 clamped and unclamped must differ); K3 also, in bf16 at
+   each C its wgmma body takes, K1's edge shapes with and without
+   use_valid and a fully-masked row at a ragged Lk, both ways; K4 its own
+   edge shapes.
 9. safe_serving, safe_train: the same serving and training paths with the
    safe softmax on (`flash_attention._SAFE_SOFTMAX`, what
    MASKUNET_SAFE_SOFTMAX=1 sets): a forward launches K3 6 times and K1
@@ -60,13 +62,14 @@ final result):
    K1 and K2 never; an eval step K3 6 times; logits and gradients against
    the plain versions as in 4 and 6; 10 steps lower the loss; wall and
    device times of both.
-10. online_time: K3 per attention shape against its plain version, its
-    bound and the library.
+10. online_time: K3 per attention shape (its body named) against its
+    plain version, its bound and the library.
 11. tools: the A/B tools' K5 `softmax_ab.old_flash_fwd`, K6
     `softmax_ab.nomax65_fwd` (clamped and not) and K7
     `bf16_softmax_experiment.flash_fwd_bf16` against their plain versions
-    at the tools' attn6 inputs, the three tool mains (the kernels' main
-    path), then each kernel's time, plain time, bound and library time.
+    at the tools' attn6 inputs (K7 also at a ragged shape with a
+    fully-masked row), the three tool mains (the kernels' main path), then
+    each kernel's time, plain time, bound and library time.
 
 It imports torch, numpy and the port, nothing of JAX.
 """
@@ -233,20 +236,20 @@ def wgmma_ptxas(log: str, kernel: str) -> list:
 
 
 def phase_device_wgmma(phase: str, kname: str, log: str, kernel: str,
-                       body, channels, per_c: int) -> None:
+                       body, channels, count: int) -> None:
     """ptxas's registers and spills of each instantiation of a wgmma body
-    (`per_c` at each of its `channels`; 0 spill bytes required), and the
+    (`count` of them over its `channels`; 0 spill bytes required), and the
     body `body(c, bf16)` names at each C, which must be wgmma exactly at
     `channels`."""
     found = wgmma_ptxas(log, kernel)
     bodies = {c: body(c, torch.bfloat16) for c in fk.KERNEL_CHANNELS}
     emit(phase=phase, **{f"{kname.lower()}_bodies_bf16": bodies},
          wgmma_ptxas=found)
-    check(len(found) == per_c * len(channels) and all(
+    check(len(found) == count and all(
         "0 bytes spill stores, 0 bytes spill loads" in ln
         for _, ln, _ in found),
-        f"{kname}'s wgmma instantiations ({per_c} a C) built without "
-        f"spills: {found}")
+        f"{kname}'s {count} wgmma instantiations built without spills: "
+        f"{found}")
     check(all((b == "wgmma") == (c in channels) for c, b in bodies.items()),
           f"{kname} runs wgmma at C in {channels}: {bodies}")
 
@@ -269,13 +272,18 @@ def phase_device() -> str:
              name for name, info in builds.items()
              if any("spill" in ln and "0 bytes spill stores, 0 bytes spill "
                     "loads" not in ln for ln in info["log"].splitlines())])
-    # K4: use_valid x clamp a C; K1/K2: use_valid a C
+    # K4: use_valid x clamp a C; K1/K2: use_valid a C; K3: use_valid a C,
+    # and K7 at C 64
     phase_device_wgmma("device_k4", "K4", builds["flash_bwd"]["log"],
                        "bwd_wgmma", fk.flash_bwd_body, fk.BWD_WGMMA_CHANNELS,
-                       4)
+                       4 * len(fk.BWD_WGMMA_CHANNELS))
     phase_device_wgmma("device_k1", "K1", builds["flash_fwd_nomax"]["log"],
                        "fwd_nomax_wgmma", fk.flash_fwd_nomax_body,
-                       fk.FWD_WGMMA_CHANNELS, 2)
+                       fk.FWD_WGMMA_CHANNELS, 2 * len(fk.FWD_WGMMA_CHANNELS))
+    phase_device_wgmma("device_k3", "K3", builds["flash_fwd_online"]["log"],
+                       "fwd_online_wgmma", fk.flash_fwd_online_body,
+                       fk.ONLINE_WGMMA_CHANNELS,
+                       2 * len(fk.ONLINE_WGMMA_CHANNELS) + 1)
     return card
 
 
@@ -346,11 +354,11 @@ def bwd_edge_cases(gen, dtype):
 FWD_EDGES = tuple(e[:3] for e in BWD_EDGES) + ((3, 129, 129),)
 
 
-def fwd_edge_cases(gen):
+def fwd_edge_cases(gen, channels=fk.FWD_WGMMA_CHANNELS):
     """`kernel_cases`' tuples for K1's and K2's edge shapes (FWD_EDGES),
-    bf16, with and without use_valid, at each C whose bf16 forward runs
-    the wgmma body."""
-    for c in fk.FWD_WGMMA_CHANNELS:
+    bf16, with and without use_valid, at each C of `channels` (those whose
+    bf16 forward runs the wgmma body)."""
+    for c in channels:
         for b, lq, lk in FWD_EDGES:
             q = (torch.randn(b, lq, c, generator=gen, device="cuda")
                  * c ** -0.5).bfloat16()
@@ -476,6 +484,26 @@ def online_cases(gen, dtype):
         yield f"above_clamp_c{c}", q, k, v, bias, True, "above_clamp", scale
 
 
+def online_edge_cases(gen):
+    """`online_cases`' tuples for K3's bf16 edge shapes at each C whose
+    bf16 K3 runs the wgmma body: FWD_EDGES with and without use_valid,
+    and a fully-masked batch row 1 at a ragged Lk (129, one key past a
+    whole number of key steps at every C), both ways."""
+    for case in fwd_edge_cases(gen, fk.ONLINE_WGMMA_CHANNELS):
+        yield (*case, 1.0)
+    for c in fk.ONLINE_WGMMA_CHANNELS:
+        q = (torch.randn(3, 37, c, generator=gen, device="cuda")
+             * c ** -0.5).bfloat16()
+        k, v = (torch.randn(3, 129, c, generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        bias = fa.mask_to_bias(torch.rand(3, 129, generator=gen,
+                                          device="cuda") < 0.5, 3, 129)
+        bias[1] = fa.NEG_INF
+        for uv, row1 in ((True, "masked"), (False, "masked_mean")):
+            yield (f"edge_c{c}_b3_q37_k129_masked_row", q, k, v, bias, uv,
+                   row1, 1.0)
+
+
 def phase_kernel_online() -> dict:
     """K3 (o and lse) vs its plain version; a fully-masked row has lse
     -1e30 and o 0 (use_valid) or the mean of V (not); returns the worst
@@ -484,7 +512,10 @@ def phase_kernel_online() -> dict:
     worst = 0.0
     neg = float(torch.tensor(fa.NEG_INF))
     for dtype in (torch.bfloat16, torch.float32):
-        for name, q, k, v, bias, uv, row1, scale in online_cases(gen, dtype):
+        cases = online_cases(gen, dtype)
+        if dtype == torch.bfloat16:
+            cases = (*cases, *online_edge_cases(gen))
+        for name, q, k, v, bias, uv, row1, scale in cases:
             o, lse = fk.flash_fwd_online(q, k, v, bias, scale, uv)
             torch.cuda.synchronize()
             want_o, want_lse = fk.flash_fwd_online_reference(
@@ -1050,7 +1081,22 @@ def phase_tools(card: str) -> dict:
     bytes_ms, ops_ms, bound_ms}} (K6: the clamped variant D's times)."""
     out = {}
     cases = tool_cases()
-    for kname, name, call, plain, _, _ in cases:
+    checks = [case[:4] for case in cases]
+    # K7 at a ragged shape (Lk one past its key tile) with batch row 1
+    # fully masked (the mean of V), checked only
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rq = (torch.randn(2, 37, 64, generator=gen, device="cuda")
+          * 0.125).bfloat16()
+    rk, rv = (torch.randn(2, 129, 64, generator=gen, device="cuda").bfloat16()
+              for _ in range(2))
+    rbias = fa.mask_to_bias(torch.rand(2, 129, generator=gen,
+                                       device="cuda") < 0.5, 2, 129)
+    rbias[1] = fa.NEG_INF
+    checks.append(("K7", "flash_fwd_bf16_ragged",
+                   lambda: bf16_tool.flash_fwd_bf16(rq, rk, rv, rbias),
+                   lambda: bf16_tool.flash_fwd_bf16_reference(rq, rk, rv,
+                                                              rbias)))
+    for kname, name, call, plain in checks:
         got, want = call(), plain()
         torch.cuda.synchronize()
         got, want = ((got, want) if isinstance(got, tuple)
@@ -1126,7 +1172,8 @@ def main() -> int:
     safe = phase_safe(card)
     online_totals = forward_shape_times(
         card, "online_attn_time", fk.flash_fwd_online,
-        fk.flash_fwd_online_reference, seed=7, lse=True)
+        fk.flash_fwd_online_reference, seed=7, lse=True,
+        body=fk.flash_fwd_online_body)
     tools = phase_tools(card)
     # every kernel of the port; K1-K4 times are summed over the six
     # attention shapes (one forward's or one step's launches), K5-K7's are
@@ -1139,6 +1186,8 @@ def main() -> int:
     online_src = "maskunet_tpu_torch/csrc/flash_fwd_online.cu"
     fwd_bodies = {str(c): fk.flash_fwd_nomax_body(c, torch.bfloat16)
                   for c in fk.KERNEL_CHANNELS}
+    online_bodies = {str(c): fk.flash_fwd_online_body(c, torch.bfloat16)
+                     for c in fk.KERNEL_CHANNELS}
     kernels = [
         kernel_entry("flash_fwd_nomax", fwd_src,
                      "maskunet_tpu/ops/flash_attention.py:164",
@@ -1150,7 +1199,8 @@ def main() -> int:
                      train_totals["K2"], bodies_bf16=fwd_bodies),
         kernel_entry("flash_fwd_online", online_src,
                      "maskunet_tpu/ops/flash_attention.py:111",
-                     safe["K3"], kernel_online["max_abs_err"], online_totals),
+                     safe["K3"], kernel_online["max_abs_err"], online_totals,
+                     bodies_bf16=online_bodies),
         kernel_entry("flash_bwd", "maskunet_tpu_torch/csrc/flash_bwd.cu",
                      "maskunet_tpu/ops/flash_attention.py:323",
                      train["launches"]["K4"] + safe["K4"],
@@ -1169,7 +1219,7 @@ def main() -> int:
         kernel_entry("flash_fwd_bf16", online_src,
                      "tools/bf16_softmax_experiment.py:32",
                      tools["K7"]["launches"], tools["K7"]["max_abs_err"],
-                     tools["K7"]),
+                     tools["K7"], bodies_bf16={"64": online_bodies["64"]}),
     ]
     emit(phase="done", seconds=time.monotonic() - t0, failures=failures)
     if failures:

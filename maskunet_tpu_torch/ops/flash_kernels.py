@@ -221,6 +221,7 @@ _ENTRIES = {
                   + [_ptr]),
     "flash_bwd_body": ("flash_bwd", [_int]),
     "flash_fwd_nomax_body": ("flash_fwd_nomax", [_int]),
+    "flash_fwd_online_body": ("flash_fwd_online", [_int]),
 }
 
 
@@ -240,6 +241,10 @@ BWD_WGMMA_CHANNELS = (64, 128)
 # Channels whose bf16 K1 and K2 run the wgmma body (`wgmma_body` in
 # csrc/flash_fwd_nomax.cu; `flash_fwd_nomax_body` reads the library's).
 FWD_WGMMA_CHANNELS = (64, 128, 256)
+# Channels whose bf16 K3 runs the wgmma body (`wgmma_body` in
+# csrc/flash_fwd_online.cu, which K7 follows at C = 64;
+# `flash_fwd_online_body` reads the library's).
+ONLINE_WGMMA_CHANNELS = (64, 128, 256)
 _BODIES = {2: "wgmma", 1: "mma_sync"}
 
 
@@ -257,6 +262,14 @@ def flash_fwd_nomax_body(c: int, dtype: torch.dtype) -> str:
     if dtype == torch.float32:
         return "fma"
     return _BODIES[_entry("flash_fwd_nomax_body")(c)]
+
+
+def flash_fwd_online_body(c: int, dtype: torch.dtype) -> str:
+    """The body K3 runs at `c` channels in `dtype` on the card (K7 runs
+    K3's at C = 64), as `flash_bwd_body` says K4's."""
+    if dtype == torch.float32:
+        return "fma"
+    return _BODIES[_entry("flash_fwd_online_body")(c)]
 
 
 def _launch(name: str, device: torch.device, *args) -> None:

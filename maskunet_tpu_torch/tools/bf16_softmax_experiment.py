@@ -4,8 +4,9 @@ Counterpart of tools/bf16_softmax_experiment.py, with its kernel:
 - K7 `flash_fwd_bf16`: the JAX tool's `_fwd_kernel_bf16`
   (tools/bf16_softmax_experiment.py:32-71), an online-max forward with
   natural exp whose scores, running max and p are bf16; CUDA in
-  csrc/flash_fwd_online.cu (entry `flash_fwd_online_bf16`). bf16 at C = 64
-  only, the instantiation the tool launches; anything else raises. A CPU
+  csrc/flash_fwd_online.cu (entry `flash_fwd_online_bf16`, on K3's body
+  at C = 64: `flash_kernels.flash_fwd_online_body(64, ...)`). bf16 at C =
+  64 only, the instantiation the tool launches; anything else raises. A CPU
   tensor runs the plain version, a CUDA tensor the kernel, counted in
   `flash_fwd_bf16.launches`.
 
@@ -31,7 +32,9 @@ from maskunet_tpu_torch.tools.softmax_ab import (need_card, check_bf16_c64,
                                                  min_window_ms)
 
 
-BLOCK_K = 64  # keys a tile of the CUDA kernel (csrc/flash_fwd_online.cu)
+# keys a tile of the CUDA kernel: its key step at C = 64 (`kKeys64` in
+# csrc/flash_fwd_online.cu), which K7's result depends on
+BLOCK_K = 128
 
 
 def flash_fwd_bf16_reference(q: torch.Tensor, k: torch.Tensor,

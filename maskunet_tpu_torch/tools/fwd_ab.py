@@ -1,17 +1,20 @@
-"""A/B of variants of the K1/K2 source (csrc/flash_fwd_nomax.cu) on the
-card: the forward's counterpart of `bwd_ab` (the JAX package's is
-tools/fwd_sweep.py).
+"""A/B of variants of a forward kernel source on the card: the forward's
+counterpart of `bwd_ab` (the JAX package's is tools/fwd_sweep.py).
 
-Each variant is the committed source with one text substitution, built
-with the library's own nvcc flags, held against the plain version and
-timed with CUDA events through K1's C entry, in alternating order over
-the rounds, at three shapes of the ADE serving forward (batch 8, bf16):
+`--source nomax` (the default) takes K1/K2's source
+(csrc/flash_fwd_nomax.cu), `--source online` K3/K7's
+(csrc/flash_fwd_online.cu). Each variant is the committed source with
+one text substitution, built with the library's own nvcc flags, held
+against the plain version and timed with CUDA events through the C entry
+(K1's, or K3's and K7's), in alternating order over the rounds, at three
+shapes of the ADE serving forward (batch 8, bf16; K7 at attn6 only, on
+its tool's inputs):
 
   attn6   16,384 queries x 9,216 compacted key slots, C 64, no use_valid
   attn1   4,096 queries x 2,560 compacted key slots, C 128, no use_valid
   attn2   1,024 queries x 1,024 keys, C 256, use_valid
 
-    python -m maskunet_tpu_torch.tools.fwd_ab [--rounds 2]
+    python -m maskunet_tpu_torch.tools.fwd_ab [--source online] [--rounds 2]
 
 Variants (bf16 runs the wgmma body at every C unless named otherwise):
   source     the committed kernel (wgmma, a producer warpgroup and two
@@ -37,6 +40,14 @@ Variants (bf16 runs the wgmma body at every C unless named otherwise):
   c128_keys128  128 keys a step and a two-stage ring at C 128 (shared
              memory holds no more)
 
+Variants of the online source (K3 and K7 run K1's wgmma body with the
+running max, K5 the mma.sync body; unlike K1's source it takes turns at
+the tensor cores at C 64 too):
+  source, mma_sync, producer0, c128_no_pingpong, stages3  as above
+  c64_no_pingpong  no ping-pong at C 64 (K1's choice there)
+  keys64           as above; for K7 that is its key tile, so its row is
+                   held against the plain version at the source's 128
+
 It prints one JSON line per variant built (ptxas's registers and spills
 of the C = 64 bf16 instantiations) and per variant timed.
 """
@@ -52,6 +63,7 @@ import torch
 
 from maskunet_tpu_torch.ops import flash_attention as fa
 from maskunet_tpu_torch.ops import flash_kernels as fk
+from maskunet_tpu_torch.tools import bf16_softmax_experiment as bf16_tool
 
 _WGMMA_C = ("constexpr bool wgmma_body(int c) "
             "{ return c == 64 || c == 128 || c == 256; }")
@@ -66,43 +78,68 @@ _KEYS = "constexpr int kKeys64 = 128;"
 _WGS = "constexpr int kConsumers = 2;"
 _KEYS128 = "constexpr int kKeys128 = 64;"
 _STAGES128 = "constexpr int kStages128 = 4;"
+_PINGPONG64_ON = "constexpr bool kPingPong64 = true;"
+
+
+def _on(line: str, old: str, new: str) -> tuple[str, str]:
+    return line, line.replace(old, new)
+
+
+# name -> the substitutions that make the variant from the source
+_SUBS = {
+    "source": (),
+    "mma_sync": ((_WGMMA_C, _NO_WGMMA),),
+    "c256_mma_sync": ((_WGMMA_C, _WGMMA_C_NO256),),
+    "producer0": (_on(_PRODUCER, "true", "false"),),
+    "pingpong": (_on(_PINGPONG, "false", "true"),),
+    "c128_no_pingpong": (_on(_PINGPONG128, "true", "false"),),
+    "stages2": (_on(_STAGES, "= 4", "= 2"),),
+    "stages3": (_on(_STAGES, "= 4", "= 3"),),
+    "keys64": (_on(_KEYS, "= 128", "= 64"),),
+    "keys256": (_on(_KEYS, "= 128", "= 256"), _on(_STAGES, "= 4", "= 2")),
+    "wg3": (_on(_WGS, "= 2", "= 3"),),
+    "c128_keys128": (_on(_KEYS128, "= 64", "= 128"),
+                     _on(_STAGES128, "= 4", "= 2")),
+    "c64_no_pingpong": (_on(_PINGPONG64_ON, "true", "false"),),
+}
+NOMAX_VARIANTS = ("source", "mma_sync", "c256_mma_sync", "producer0",
+                  "pingpong", "c128_no_pingpong", "stages2", "stages3",
+                  "keys64", "keys256", "wg3", "c128_keys128")
+ONLINE_VARIANTS = ("source", "mma_sync", "producer0", "c64_no_pingpong",
+                   "c128_no_pingpong", "stages3", "keys64")
 
 
 def _sub(text: str, *pairs: tuple[str, str]) -> str:
     for old, new in pairs:
         if text.count(old) != 1:
-            raise ValueError(f"the K1/K2 source no longer holds {old!r} once")
+            raise ValueError(f"the kernel source no longer holds {old!r} "
+                             "once")
         text = text.replace(old, new)
     return text
 
 
-def variants(src: str) -> dict[str, str]:
-    """{name: CUDA source} of the variants of the module docstring."""
-    return {"source": _sub(src),
-            "mma_sync": _sub(src, (_WGMMA_C, _NO_WGMMA)),
-            "c256_mma_sync": _sub(src, (_WGMMA_C, _WGMMA_C_NO256)),
-            "producer0": _sub(src, (_PRODUCER, _PRODUCER.replace("true",
-                                                                "false"))),
-            "pingpong": _sub(src, (_PINGPONG, _PINGPONG.replace(
-                "false", "true"))),
-            "c128_no_pingpong": _sub(src, (_PINGPONG128,
-                                           _PINGPONG128.replace("true",
-                                                                "false"))),
-            "stages2": _sub(src, (_STAGES, _STAGES.replace("= 4", "= 2"))),
-            "stages3": _sub(src, (_STAGES, _STAGES.replace("= 4", "= 3"))),
-            "keys64": _sub(src, (_KEYS, _KEYS.replace("= 128", "= 64"))),
-            "keys256": _sub(src, (_KEYS, _KEYS.replace("= 128", "= 256")),
-                            (_STAGES, _STAGES.replace("= 4", "= 2"))),
-            "wg3": _sub(src, (_WGS, _WGS.replace("= 2", "= 3"))),
-            "c128_keys128": _sub(
-                src, (_KEYS128, _KEYS128.replace("= 64", "= 128")),
-                (_STAGES128, _STAGES128.replace("= 4", "= 2")))}
+def variants(src: str, names=NOMAX_VARIANTS) -> dict[str, str]:
+    """{name: CUDA source} of the variants `names` of the module
+    docstring."""
+    return {name: _sub(src, *_SUBS[name]) for name in names}
 
 
-def _build(texts: dict[str, str]) -> dict:
-    """Compile every variant at once; returns {name: (entry, ptxas lines of
-    the C = 64 bf16 instantiations)}."""
-    out_dir = fk.BUILD_DIR / "fwd_ab"
+# source -> (library, C entries a variant is timed through, kernels whose
+# ptxas lines are printed: the C = 64 bf16 instantiations)
+_LIBRARIES = {
+    "nomax": ("flash_fwd_nomax", ("flash_fwd_nomax",),
+              ("fwd_nomax_wgmmaILi64E", "fwd_nomax_bf16ILi64E")),
+    "online": ("flash_fwd_online",
+               ("flash_fwd_online", "flash_fwd_online_bf16"),
+               ("fwd_online_wgmmaILi64E", "fwd_online_bf16ILi64E")),
+}
+
+
+def _build(texts: dict[str, str], source: str) -> dict:
+    """Compile every variant at once; returns {name: ({entry: function},
+    ptxas lines of the C = 64 bf16 instantiations)}."""
+    _, entries, kernels = _LIBRARIES[source]
+    out_dir = fk.BUILD_DIR / f"fwd_ab_{source}"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in texts.items():
@@ -120,12 +157,15 @@ def _build(texts: dict[str, str]) -> dict:
         ptxas = [" | ".join(ln.strip() for ln in lines[i + 1:i + 3])
                  for i, ln in enumerate(lines)
                  if "Function properties" in ln
-                 and ("fwd_nomax_wgmmaILi64E" in ln
-                      or "fwd_nomax_bf16ILi64E" in ln)]
-        fn = ctypes.CDLL(str(out_dir / f"{name}.so")).flash_fwd_nomax
-        fn.argtypes = fk._ENTRIES["flash_fwd_nomax"][1]
-        fn.restype = ctypes.c_int
-        built[name] = (fn, ptxas)
+                 and any(kn in ln for kn in kernels)]
+        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+        fns = {}
+        for entry in entries:
+            fn = getattr(lib, entry)
+            fn.argtypes = fk._ENTRIES[entry][1]
+            fn.restype = ctypes.c_int
+            fns[entry] = fn
+        built[name] = (fns, ptxas)
     return built
 
 
@@ -145,8 +185,47 @@ def _inputs(lq: int, c: int, use_valid: bool, seed: int):
     return q, k, v, fa.mask_to_bias(mask, 8, lk), use_valid
 
 
+def _call(entry: str, fn, q, k, v, bias, uv):
+    """o of one launch of a variant's C `entry` (K1's, K3's or K7's) on
+    bf16 inputs, scale 1."""
+    o = torch.empty_like(q)
+    b, lq, c = q.shape
+    lse = torch.empty(b, 1, lq, device=q.device)
+    head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            o.data_ptr()]
+    if entry != "flash_fwd_nomax":
+        head.append(lse.data_ptr())
+    tail = [b, lq, k.shape[1], c]
+    if entry != "flash_fwd_online_bf16":
+        tail += [1, int(uv), fk.weak_scalar(fk._LOG2E, torch.bfloat16)]
+    err = fn(*head, *tail, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} variant: CUDA error {err}")
+    return o
+
+
+def _cases(source: str) -> dict:
+    """{label: (entry, inputs, the plain version's o)} the variants of
+    `source` are timed at."""
+    shapes = {"attn6": _inputs(16384, 64, False, 0),
+              "attn1": _inputs(4096, 128, False, 2),
+              "attn2": _inputs(1024, 256, True, 1)}
+    if source == "nomax":
+        return {s: ("flash_fwd_nomax", x,
+                    fk.flash_fwd_nomax_reference(*x[:4], 1.0, x[4]))
+                for s, x in shapes.items()}
+    cases = {s: ("flash_fwd_online", x,
+                 fk.flash_fwd_online_reference(*x[:4], 1.0, x[4])[0])
+             for s, x in shapes.items()}
+    x7 = (*bf16_tool.attn6_inputs(8), False)
+    cases["k7_attn6"] = ("flash_fwd_online_bf16", x7,
+                         bf16_tool.flash_fwd_bf16_reference(*x7[:4])[0])
+    return cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--source", choices=tuple(_LIBRARIES), default="nomax")
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -155,38 +234,24 @@ def main() -> int:
                           "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
-    built = _build(variants(fk.SOURCES["flash_fwd_nomax"].read_text()))
+    src = fk.SOURCES[_LIBRARIES[args.source][0]].read_text()
+    names = NOMAX_VARIANTS if args.source == "nomax" else ONLINE_VARIANTS
+    built = _build(variants(src, names), args.source)
     for name, (_, ptxas) in built.items():
-        print(json.dumps({"variant": name, "ptxas_c64_bf16": ptxas}),
-              flush=True)
+        print(json.dumps({"source": args.source, "variant": name,
+                          "ptxas_c64_bf16": ptxas}), flush=True)
+    cases = _cases(args.source)
 
-    shapes = {"attn6": _inputs(16384, 64, False, 0),
-              "attn1": _inputs(4096, 128, False, 2),
-              "attn2": _inputs(1024, 256, True, 1)}
-    want = {s: fk.flash_fwd_nomax_reference(q, k, v, bias, 1.0, uv)
-            for s, (q, k, v, bias, uv) in shapes.items()}
-    qmul = fk.weak_scalar(fk._LOG2E, torch.bfloat16)
-
-    def run(fn, q, k, v, bias, uv):
-        o = torch.empty_like(q)
-        b, lq, c = q.shape
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                 o.data_ptr(), b, lq, k.shape[1], c, 1, int(uv), qmul,
-                 torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"flash_fwd_nomax variant: CUDA error {err}")
-        return o
-
-    names = list(built)
     for rnd in range(args.rounds):
         for name in (names if rnd % 2 == 0 else names[::-1]):
-            fn = built[name][0]
-            row = {"round": rnd, "variant": name}
-            for s, inputs in shapes.items():
-                got = run(fn, *inputs)
+            fns = built[name][0]
+            row = {"source": args.source, "round": rnd, "variant": name}
+            for label, (entry, inputs, want) in cases.items():
+                fn = fns[entry]
+                got = _call(entry, fn, *inputs)
                 torch.cuda.synchronize()
-                w = want[s].float()
-                row[f"{s}_rms_err_over_rms_plain"] = float(
+                w = want.float()
+                row[f"{label}_rms_err_over_rms_plain"] = float(
                     (got.float() - w).square().mean().sqrt()
                     / w.square().mean().sqrt())
                 best = float("inf")
@@ -195,11 +260,11 @@ def main() -> int:
                     end = torch.cuda.Event(enable_timing=True)
                     start.record()
                     for _ in range(20):
-                        run(fn, *inputs)
+                        _call(entry, fn, *inputs)
                     end.record()
                     end.synchronize()
                     best = min(best, start.elapsed_time(end) / 20)
-                row[f"{s}_ms"] = best
+                row[f"{label}_ms"] = best
             print(json.dumps(row), flush=True)
     return 0
 

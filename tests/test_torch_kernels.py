@@ -10,7 +10,8 @@ wrapper launches its CUDA kernel (K1 `flash_fwd_nomax`, K2
 `flash_fwd_nomax_lse`, K3 `flash_fwd_online`, K4 `flash_bwd` with and
 without its clamp, and the A/B tools' K5 `softmax_ab.old_flash_fwd`, K6
 `softmax_ab.nomax65_fwd` and K7 `bf16_softmax_experiment.flash_fwd_bf16`),
-counted in `<wrapper>.launches`.
+counted in `<wrapper>.launches`. K1-K4 and K7 have edge cases where their
+TMA boxes meet ragged lengths.
 Kernel vs plain version, both bounds scaled to the plain output (as
 chip_smoke.py holds them): max|diff| <= TOL max|plain| and rms(diff) <=
 RMS_TOL rms(plain); f32 2e-5 / 1e-5 (summation order, the hardware exp2,
@@ -22,6 +23,10 @@ pyproject's `error::DeprecationWarning:maskunet_tpu` filter also matches
 `maskunet_tpu_torch` (unanchored regex): the port avoids deprecated torch
 calls instead of editing the filter.
 """
+
+import ctypes
+import re
+import subprocess
 
 import pytest
 import torch
@@ -309,6 +314,54 @@ def test_forward_body_channels_match_the_kernel_source():
     assert 'extern "C" int flash_fwd_nomax_body(int c)' in src
 
 
+def test_online_ab_variants_apply_to_the_kernel_source():
+    """Every K3/K7 variant of the forward A/B tool's `--source online` is
+    one substitution of the committed online source away: the mma.sync
+    body at every C, thread 0 as the producer, no ping-pong at C 64 or
+    128, a three-stage ring, 64 keys a step at C 64."""
+    from maskunet_tpu_torch.tools import fwd_ab
+    src = tk.SOURCES["flash_fwd_online"].read_text()
+    texts = fwd_ab.variants(src, fwd_ab.ONLINE_VARIANTS)
+    assert set(texts) == {"source", "mma_sync", "producer0",
+                          "c64_no_pingpong", "c128_no_pingpong", "stages3",
+                          "keys64"}
+    assert texts["source"] == src
+    assert len(set(texts.values())) == len(texts)
+    for name, line in (("mma_sync", "{ return false; }"),
+                       ("producer0", "kProducerWarp = false;"),
+                       ("c64_no_pingpong", "kPingPong64 = false;"),
+                       ("c128_no_pingpong", "kPingPong128 = false;"),
+                       ("stages3", "kStages64 = 3;"),
+                       ("keys64", "kKeys64 = 64;")):
+        assert line in texts[name] and line not in src
+    for old in (fwd_ab._WGMMA_C, fwd_ab._PRODUCER, fwd_ab._PINGPONG64_ON,
+                fwd_ab._PINGPONG128, fwd_ab._STAGES, fwd_ab._KEYS):
+        with pytest.raises(ValueError, match="no longer holds"):
+            fwd_ab.variants(src.replace(old, ""), fwd_ab.ONLINE_VARIANTS)
+
+
+def test_online_body_channels_match_the_kernel_source():
+    """The wrapper's list of K3's wgmma channels is the online source's
+    own, and the source exports the body query the wrapper binds."""
+    src = tk.SOURCES["flash_fwd_online"].read_text()
+    want = " || ".join(f"c == {c}" for c in tk.ONLINE_WGMMA_CHANNELS)
+    assert f"constexpr bool wgmma_body(int c) {{ return {want}; }}" in src
+    assert 'extern "C" int flash_fwd_online_body(int c)' in src
+    assert tk._ENTRIES["flash_fwd_online_body"][0] == "flash_fwd_online"
+    assert tk.flash_fwd_online_body(64, torch.float32) == "fma"
+
+
+def test_bf16_tool_block_k_is_the_kernel_key_step():
+    """K7's result depends on its key tile, so the plain version's
+    BLOCK_K is the key step of K7's kernel: `kKeys64` of the online
+    source, the C = 64 step of both of its bf16 bodies."""
+    src = tk.SOURCES["flash_fwd_online"].read_text()
+    steps = re.findall(r"constexpr int kKeys64 = (\d+);", src)
+    assert steps == [str(tbf.BLOCK_K)]
+    assert "C == 64 ? kKeys64" in src                    # the wgmma body
+    assert "MODE == kBf16Scores ? kKeys64" in src        # the mma.sync body
+
+
 def _recorded_launches(monkeypatch) -> list:
     """Takes every tensor for the card and records each launch's (entry,
     arguments) instead of launching."""
@@ -592,6 +645,109 @@ def test_online_kernel_matches_plain_version_on_card(cuda, c):
                 assert torch.isnan(o[1]).all() and torch.isnan(lse[1]).all()
             else:
                 _agrees(lse[1], want_lse[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", tk.ONLINE_WGMMA_CHANNELS)
+@pytest.mark.parametrize("edge", [(3, 200, 150), (3, 37, 200), (3, 50, 700),
+                                  (3, 129, 129), (3, 37, 129)])
+def test_online_kernel_at_ragged_edges_on_card(cuda, c, edge):
+    """K3's bf16 wgmma body where its TMA boxes meet the edges of Lq (past
+    or below the 128-query block), Lk (past the key step) and the batch,
+    use_valid both ways; batch row 1 then fully masked: lse -1e30, o 0
+    with use_valid and the mean of the visible slots' V without."""
+    b, lq, lk = edge
+    g = torch.Generator().manual_seed(lq + lk + c)
+    q, k, v = (torch.randn(b, n, c, generator=g).to(cuda, torch.bfloat16)
+               for n in (lq, lk, lk))
+    bias = tfa.mask_to_bias(torch.rand(b, lk, generator=g) < 0.5, b,
+                            lk).to(cuda)
+    masked = bias.clone()
+    masked[1] = tfa.NEG_INF
+    for bb, use_valid in ((bias, True), (bias, False), (masked, True),
+                          (masked, False)):
+        o, lse = tk.flash_fwd_online(q, k, v, bb, c ** -0.5, use_valid)
+        torch.cuda.synchronize()
+        want_o, want_lse = tk.flash_fwd_online_reference(q, k, v, bb,
+                                                         c ** -0.5, use_valid)
+        _agrees(o, want_o)
+        _agrees(lse, want_lse)
+        if bb is masked:
+            assert bool((lse[1] == float(torch.tensor(tfa.NEG_INF))).all())
+            mean_v = v[1].float().mean(0).expand(lq, c).bfloat16()
+            if use_valid:
+                assert bool((o[1] == 0).all())
+            else:
+                _agrees(o[1], mean_v)
+
+
+@pytest.mark.cuda
+def test_bf16_tool_kernel_at_ragged_shape_on_card(cuda):
+    """K7 where its key tile meets a ragged Lk (one past the tile, and
+    several tiles with a ragged last one), against its plain version at
+    the kernel's BLOCK_K; batch row 1 fully masked gives the mean of V."""
+    g = torch.Generator().manual_seed(11)
+    for lq, lk in ((37, tbf.BLOCK_K + 1), (150, 3 * tbf.BLOCK_K + 50)):
+        q = (torch.randn(2, lq, 64, generator=g) * 0.125).to(cuda,
+                                                            torch.bfloat16)
+        k, v = (torch.randn(2, lk, 64, generator=g).to(cuda, torch.bfloat16)
+                for _ in range(2))
+        bias = tfa.mask_to_bias(torch.rand(2, lk, generator=g) < 0.5, 2,
+                                lk).to(cuda)
+        bias[1] = tfa.NEG_INF
+        before = tbf.flash_fwd_bf16.launches
+        o, lse = tbf.flash_fwd_bf16(q, k, v, bias)
+        torch.cuda.synchronize()
+        assert tbf.flash_fwd_bf16.launches == before + 1
+        want_o, want_lse = tbf.flash_fwd_bf16_reference(q, k, v, bias,
+                                                        tbf.BLOCK_K)
+        _agrees(o, want_o)
+        _agrees(lse, want_lse)
+        _agrees(o[1], v[1].float().mean(0).expand(lq, 64).bfloat16())
+
+
+# every bf16 input through CUDA's h2exp and the online source's
+# exp_bf16x2 (K7's exponential), the source included whole
+_EXP_CHECK = r"""
+#include "@SOURCE@"
+
+__global__ void exp_pair(unsigned short* by_h2exp, unsigned short* ours) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const __nv_bfloat16 x = __ushort_as_bfloat16((unsigned short)i);
+  const __nv_bfloat162 x2 = __halves2bfloat162(x, x);
+  by_h2exp[i] = __bfloat16_as_ushort(__low2bfloat16(h2exp(x2)));
+  ours[i] = __bfloat16_as_ushort(__float2bfloat16_rn(exp_bf16x2(x2).x));
+}
+
+extern "C" int exp_check(void* by_h2exp, void* ours) {
+  exp_pair<<<256, 256>>>((unsigned short*)by_h2exp, (unsigned short*)ours);
+  return int(cudaDeviceSynchronize());
+}
+"""
+
+
+@pytest.mark.cuda
+def test_bf16_exp_is_h2exp_but_for_subnormals_on_card(cuda, tmp_path):
+    """K7's exponential (`exp_bf16x2`, h2exp's arithmetic with ex2's
+    flush-to-zero form) gives h2exp's bits on all 65,536 bf16 inputs (NaN
+    for NaN), except where h2exp returns a bf16 subnormal (p < 2^-126),
+    which it gives as 0."""
+    src = tmp_path / "exp_check.cu"
+    src.write_text(_EXP_CHECK.replace(
+        "@SOURCE@", str(tk.SOURCES["flash_fwd_online"])))
+    lib = tmp_path / "exp_check.so"
+    subprocess.run([tk._nvcc(), *tk.NVCC_FLAGS, "-o", str(lib), str(src)],
+                   check=True, capture_output=True)
+    by_h2exp, ours = (torch.empty(65536, dtype=torch.int16, device=cuda)
+                      for _ in range(2))
+    assert ctypes.CDLL(str(lib)).exp_check(
+        ctypes.c_void_p(by_h2exp.data_ptr()),
+        ctypes.c_void_p(ours.data_ptr())) == 0
+    h = by_h2exp.view(torch.bfloat16).float().cpu()
+    f = ours.view(torch.bfloat16).float().cpu()
+    differ = (by_h2exp != ours).cpu() & ~(torch.isnan(h) & torch.isnan(f))
+    assert bool((h[differ].abs() < 2.0 ** -126).all())
+    assert bool((f[differ] == 0).all())
 
 
 @pytest.mark.cuda

@@ -160,27 +160,30 @@ def test_bf16_scores_plain_matches_jax(jax_tools, masked_row):
         np.testing.assert_allclose(lse[1].numpy(), bf_neg, rtol=1e-6)
 
 
-def test_bf16_scores_reference_follows_the_tile_recurrence():
+@pytest.mark.parametrize("block_k", [96, 64, tbf.BLOCK_K])
+def test_bf16_scores_reference_follows_the_tile_recurrence(block_k):
     """The plain K7's closed form over key tiles (running max by cummax,
     each tile carried by the product of the later tiles' alpha) against the
-    kernel's recurrence written tile by tile, with a ragged last tile, a
-    fully masked row and a running max that rises over the tiles."""
+    kernel's recurrence written tile by tile, with a fully masked row and a
+    running max that rises over the tiles; at 96 keys a tile with a ragged
+    last tile, at 64 (the kernel's tile before its wgmma body) and at the
+    kernel's BLOCK_K."""
     q, k, v, bias = _inputs(4, masked_row=True)
     tq, tk_, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
     tk_[0, 200:] *= 3                        # the max moves in later tiles
     tb = torch.from_numpy(bias)
-    o, lse = tbf.flash_fwd_bf16_reference(tq, tk_, tv, tb, block_k=96)
+    o, lse = tbf.flash_fwd_bf16_reference(tq, tk_, tv, tb, block_k=block_k)
     for i in range(2):
         m = torch.full((256, 1), -1e30).bfloat16()
         l, acc = torch.zeros(256, 1), torch.zeros(256, 64)
-        for t0 in range(0, 512, 96):
-            s = (tq[i].float() @ tk_[i, t0:t0 + 96].float().T).bfloat16() \
-                + tb[i, :, t0:t0 + 96].bfloat16()
+        for t0 in range(0, 512, block_k):
+            s = (tq[i].float() @ tk_[i, t0:t0 + block_k].float().T
+                 ).bfloat16() + tb[i, :, t0:t0 + block_k].bfloat16()
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             p = torch.exp(s - m_new)
             alpha = torch.exp((m - m_new).float())
             l = alpha * l + p.float().sum(-1, keepdim=True)
-            acc = alpha * acc + p.float() @ tv[i, t0:t0 + 96].float()
+            acc = alpha * acc + p.float() @ tv[i, t0:t0 + block_k].float()
             m = m_new
         l = l.clamp(min=1e-30)
         _close(o[i], (acc / l).bfloat16().float().numpy(), "bfloat16")
