@@ -9,7 +9,7 @@ final result):
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions, the build of the kernel libraries from
    maskunet_tpu_torch/csrc (seconds, ptxas registers and spills; those of
-   K4's, K1/K2's and K3/K7's wgmma instantiations named, and 0 spill bytes
+   K4's, K1/K2's and K3/K5/K7's wgmma instantiations named, and 0 spill bytes
    required: phases device_k4, device_k1 and device_k3), and the body K4,
    K1/K2 and K3 run in bf16 at each C (wgmma or mma_sync).
 2. kernel: K1 `flash_fwd_nomax` against its plain PyTorch version at the
@@ -273,7 +273,7 @@ def phase_device() -> str:
              if any("spill" in ln and "0 bytes spill stores, 0 bytes spill "
                     "loads" not in ln for ln in info["log"].splitlines())])
     # K4: use_valid x clamp a C; K1/K2: use_valid a C; K3: use_valid a C,
-    # and K7 at C 64
+    # and K5 and K7 at C 64
     phase_device_wgmma("device_k4", "K4", builds["flash_bwd"]["log"],
                        "bwd_wgmma", fk.flash_bwd_body, fk.BWD_WGMMA_CHANNELS,
                        4 * len(fk.BWD_WGMMA_CHANNELS))
@@ -283,7 +283,7 @@ def phase_device() -> str:
     phase_device_wgmma("device_k3", "K3", builds["flash_fwd_online"]["log"],
                        "fwd_online_wgmma", fk.flash_fwd_online_body,
                        fk.ONLINE_WGMMA_CHANNELS,
-                       2 * len(fk.ONLINE_WGMMA_CHANNELS) + 1)
+                       2 * len(fk.ONLINE_WGMMA_CHANNELS) + 2)
     return card
 
 
@@ -1211,7 +1211,7 @@ def main() -> int:
                                   for c in fk.KERNEL_CHANNELS}),
         kernel_entry("old_flash_fwd", online_src, "tools/softmax_ab.py:29",
                      tools["K5"]["launches"], tools["K5"]["max_abs_err"],
-                     tools["K5"]),
+                     tools["K5"], bodies_bf16={"64": online_bodies["64"]}),
         kernel_entry("nomax65_fwd",
                      "maskunet_tpu_torch/csrc/flash_fwd_nomax65.cu",
                      "tools/softmax_ab.py:157", tools["K6"]["launches"],

@@ -27,7 +27,9 @@
 //   * K5 `_old_fwd_kernel` (tools/softmax_ab.py:29-60, launched at :69):
 //     the same with natural exp, no q scale (the caller scales q), no
 //     use_valid, lse = m + ln(max(l, 1e-30)). Entry `flash_fwd_online_exp`,
-//     bf16 at C = 64 only (the instantiation its tool launches).
+//     bf16 at C = 64 only (the instantiation its tool launches). On the
+//     wgmma body its p = exp(s - m) is ex2(fma(s, log2e, -m log2e)), one
+//     FMA a score as K3's subtract (see `natural_exp_args`).
 //
 //   * K7 `_fwd_kernel_bf16` (tools/bf16_softmax_experiment.py:32-71,
 //     launched at :79): natural exp with bf16 scores. Entry
@@ -49,13 +51,14 @@
 // and a subtract; per key step and row, two quad shuffles, one exponential
 // (alpha) and the rescale of the row's O accumulators. Three bodies:
 //
-// bf16 (`fwd_online_wgmma`; K3 at every C, K7): the no-max forward's wgmma
-// body (see flash_fwd_nomax.cu's header for its parts) with the running
-// max added. A producer warpgroup streams K and V by TMA (3-D maps (C, L,
-// B), 128-byte swizzle, so keys past Lk read k = v = 0) through an
-// mbarrier ring; consumer warpgroups of 64 queries (two a block, one at C
-// = 256) compute S = (q*qmul) K^T by wgmma from shared memory and O += P V
-// by wgmma with P packed from the S registers. Step j, in FA3's order:
+// bf16 (`fwd_online_wgmma`; K3 at every C, K5 and K7 at C = 64): the
+// no-max forward's wgmma body (see flash_fwd_nomax.cu's header for its
+// parts) with the running max added. A producer warpgroup streams K and V
+// by TMA (3-D maps (C, L, B), 128-byte swizzle, so keys past Lk read k =
+// v = 0) through an mbarrier ring; consumer warpgroups of 64 queries (two
+// a block, one at C = 256) compute S = (q*qmul) K^T by wgmma from shared
+// memory and O += P V by wgmma with P packed from the S registers. Step
+// j, in FA3's order:
 //
 //   1. issue S_j and P_{j-1} V_{j-1}; wait for S_j only;
 //   2. s + bias, the row's new max n = nanmax(m, max over the tile) by
@@ -74,7 +77,7 @@
 // C7520); O leaves by a 3-D TMA store that clips rows past Lq, lse by
 // plain stores.
 //
-// bf16 with no key, K5, and every C in the A/B tool's `mma_sync` variant
+// bf16 with no key, and every C in the A/B tool's `mma_sync` variant
 // (`fwd_online_bf16`): the first design, mma.sync m16n8k16 with 16 query
 // rows a warp, a two-stage cp.async K/V ring every thread fills, and
 // ldmatrix.
@@ -97,6 +100,7 @@ namespace {
 constexpr float kValidThreshold = -5e29f;  // NEG_INF * 0.5
 constexpr float kNegInf = -1e30f;          // NEG_INF: the running max's start
 constexpr float kMinL = 1e-30f;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBQ = 64;                    // query rows per f32 block
 
 // The three functions this source computes (see the header).
@@ -135,6 +139,20 @@ __device__ __forceinline__ float quad_sum(float x) {
 // max(l, 1e-30) that keeps NaN.
 __device__ __forceinline__ float floor_l(float l) {
   return l < kMinL ? kMinL : l;
+}
+
+// K5's exp(s - n) on the wgmma body as ex2(fma(s, sc, of)): sc = log2e
+// and of = -n log2e, one FMA a score where __expf(s - n) takes a subtract
+// and a multiply. A row with no visible key so far has n = -1e30, where
+// -n log2e rounds by up to 2^75 and exp(s - n) of its masked keys (s = n)
+// would be anything; there sc = 1 and of = -n exactly, so s - n is 0 for
+// those keys (exp2(0) = exp(0) = 1) and at most -7.6e22, the spacing of
+// floats near 1e30, for any other (both exponentials 0). A NaN n gives NaN.
+__device__ __forceinline__ void natural_exp_args(float n, float& sc,
+                                                 float& of) {
+  const bool none = n <= kValidThreshold;
+  sc = none ? 1.f : kLog2e;
+  of = none ? -n : -n * kLog2e;
 }
 
 template <int MODE>
@@ -465,8 +483,9 @@ fwd_online_bf16(const __nv_bfloat16* __restrict__ q,
 // the header for the design.
 // ---------------------------------------------------------------------------
 
-// C values whose bf16 K3 (and, at C = 64, K7) runs `fwd_online_wgmma`; the
-// others, a call with no key, and K5 run `fwd_online_bf16`.
+// C values whose bf16 K3 (and, at C = 64, K5 and K7) runs
+// `fwd_online_wgmma`; the others and a call with no key run
+// `fwd_online_bf16`.
 constexpr bool wgmma_body(int c) { return c == 64 || c == 128 || c == 256; }
 
 constexpr int kTile = 64 * 128;   // 64 rows of one 128-byte line
@@ -488,6 +507,10 @@ constexpr int kKeys256 = 64;      // keys a step, C 256
 constexpr int kStages64 = 4;      // depth of the K / V ring, C 64
 constexpr int kStages128 = 4;     // depth of the K / V ring, C 128
 constexpr int kStages256 = 3;     // depth of the K / V ring, C 256
+// K5's exponential on the wgmma body: ex2 of one FMA a score (true) or
+// __expf(s - n), a subtract and a multiply (false); tools/fwd_ab.py
+// --source online times both
+constexpr bool kExpByFma = true;
 
 __device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -737,8 +760,8 @@ struct FwdWgTile {
 // One block: batch row blockIdx.y, queries blockIdx.x * BQ ..; consumer
 // warpgroup wg owns queries wg * 64 .. wg * 64 + 63 of them, and with PW
 // the last warpgroup streams the tiles; PP: ping-pong; MODE: K3
-// (kBase2) or K7 (kBf16Scores). q, k, v, o: 3-D maps (C, L, B), box (64,
-// 64 or BK, 1), 128-byte swizzle.
+// (kBase2), K5 (kNatural) or K7 (kBf16Scores). q, k, v, o: 3-D maps (C,
+// L, B), box (64, 64 or BK, 1), 128-byte swizzle.
 template <int C, int BK, int NS, int WGS, bool PW, bool PP, int MODE,
           bool USE_VALID>
 __global__ void __launch_bounds__(FwdWgTile<C, BK, NS, WGS, PW>::threads, 1)
@@ -1015,6 +1038,12 @@ fwd_online_wgmma(const __grid_constant__ CUtensorMap tq,
       l0b *= alpha0;
       l1 *= alpha1;
       l1b *= alpha1;
+      constexpr bool by_fma = MODE == kNatural && kExpByFma;
+      float sc0, of0, sc1, of1;
+      if constexpr (by_fma) {
+        natural_exp_args(n0, sc0, of0);
+        natural_exp_args(n1, sc1, of1);
+      }
 #pragma unroll
       for (int jj = 0; jj < BK / 8; ++jj) {
         float2 b2;
@@ -1022,7 +1051,12 @@ fwd_online_wgmma(const __grid_constant__ CUtensorMap tq,
           b2 = *reinterpret_cast<const float2*>(bt + 8 * jj + 2 * tq4);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float p = softmax_exp<MODE>(st[4 * jj + e] - (e < 2 ? n0 : n1));
+          float p;
+          if constexpr (by_fma)
+            p = ex2(fmaf(st[4 * jj + e], e < 2 ? sc0 : sc1,
+                         e < 2 ? of0 : of1));
+          else
+            p = softmax_exp<MODE>(st[4 * jj + e] - (e < 2 ? n0 : n1));
           if (USE_VALID)
             p *= ((e & 1) ? b2.y : b2.x) > kValidThreshold ? 1.f : 0.f;
           float& l = e < 2 ? (jj & 1 ? l0b : l0) : (jj & 1 ? l1b : l1);
@@ -1375,7 +1409,7 @@ cudaError_t run_wgmma(const Args& a) {
   return cudaGetLastError();
 }
 
-// K3 and K7 run the wgmma body at the C that `wgmma_body` names, K5 and a
+// K3, K5 and K7 run the wgmma body at the C that `wgmma_body` names, a
 // call with no key (a map cannot have length 0; the mma.sync body writes
 // o = 0) the mma.sync body, with the no-max kernel's tiles there: 128 f32
 // accumulators a thread at C = 256 halve the key tile, at C = 64 a block
@@ -1383,7 +1417,7 @@ cudaError_t run_wgmma(const Args& a) {
 // depends on it).
 template <int C, int MODE, bool UV>
 cudaError_t run_bf16(const Args& a) {
-  if constexpr (wgmma_body(C) && MODE != kNatural) {
+  if constexpr (wgmma_body(C)) {
     if (a.lk > 0) return run_wgmma<C, MODE, UV>(a);
   }
   constexpr int BK = MODE == kBf16Scores ? kKeys64 : C >= 256 ? 32 : 64;
@@ -1454,9 +1488,9 @@ extern "C" int flash_fwd_online_bf16(const void* q, const void* k,
            static_cast<cudaStream_t>(stream)}));
 }
 
-// Which body the bf16 K3 runs at C channels (and K7 at C = 64): 2 = wgmma
-// (`fwd_online_wgmma`), 1 = mma.sync (`fwd_online_bf16`), 0 = no kernel
-// for that C.
+// Which body the bf16 K3 runs at C channels (and K5 and K7 at C = 64):
+// 2 = wgmma (`fwd_online_wgmma`), 1 = mma.sync (`fwd_online_bf16`), 0 =
+// no kernel for that C.
 extern "C" int flash_fwd_online_body(int c) {
   if (c != 64 && c != 128 && c != 256) return 0;
   return wgmma_body(c) ? 2 : 1;

@@ -351,6 +351,26 @@ def test_online_body_channels_match_the_kernel_source():
     assert tk.flash_fwd_online_body(64, torch.float32) == "fma"
 
 
+def test_k5_runs_the_online_wgmma_body():
+    """K5's entry runs the online wgmma body, as K3 and K7 do, at any key
+    count above 0 (the mma.sync body is left only for a call with no
+    key), and the body's natural exponential is the FMA form or __expf
+    by one switch."""
+    src = tk.SOURCES["flash_fwd_online"].read_text()
+    entry = src[src.index('extern "C" int flash_fwd_online_exp('):]
+    entry = entry[:entry.index("\n}\n")]
+    assert "run_bf16<64, kNatural, false>(" in entry
+    run_bf16 = src[src.index("cudaError_t run_bf16(const Args& a) {"):]
+    run_bf16 = run_bf16[:run_bf16.index("\n}\n")]
+    assert ("  if constexpr (wgmma_body(C)) {\n"
+            "    if (a.lk > 0) return run_wgmma<C, MODE, UV>(a);\n  }"
+            in run_bf16)
+    assert "kNatural" not in run_bf16
+    assert 64 in tk.ONLINE_WGMMA_CHANNELS
+    assert src.count("constexpr bool kExpByFma = true;") == 1
+    assert "MODE == kNatural && kExpByFma" in src
+
+
 def test_bf16_tool_block_k_is_the_kernel_key_step():
     """K7's result depends on its key tile, so the plain version's
     BLOCK_K is the key step of K7's kernel: `kKeys64` of the online
@@ -799,3 +819,31 @@ def test_tool_kernels_match_plain_versions_on_card(cuda):
             assert bool((got[0][1] == 0).all())
         else:
             _agrees(got[1][0], want[1][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", [(3, 37, 129), (3, 150, 434), (3, 200, 150)])
+def test_k5_at_ragged_shapes_on_card(cuda, edge):
+    """K5 on the online wgmma body where Lq stops short of its 128-query
+    block and Lk of its 128-key tile: against its plain version; batch row
+    1 fully masked gives the mean of V (lse -1e30), a NaN in a key row of
+    batch row 2 gives NaN."""
+    b, lq, lk = edge
+    g = torch.Generator().manual_seed(lq + lk)
+    q = (torch.randn(b, lq, 64, generator=g) * 0.125).to(cuda, torch.bfloat16)
+    k, v = (torch.randn(b, lk, 64, generator=g).to(cuda, torch.bfloat16)
+            for _ in range(2))
+    bias = tfa.mask_to_bias(torch.rand(b, lk, generator=g) < 0.5, b,
+                            lk).to(cuda)
+    bias[1] = tfa.NEG_INF
+    k[2, 5] = float("nan")
+    before = tsab.old_flash_fwd.launches
+    o, lse = tsab.old_flash_fwd(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert tsab.old_flash_fwd.launches == before + 1
+    want_o, want_lse = tsab.old_flash_fwd_reference(q, k, v, bias)
+    _agrees(o, want_o)
+    _agrees(lse[0], want_lse[0])
+    _agrees(o[1], v[1].float().mean(0).expand(lq, 64).bfloat16())
+    assert bool((lse[1] == float(torch.tensor(tfa.NEG_INF))).all())
+    assert torch.isnan(o[2]).all() and torch.isnan(lse[2]).all()
