@@ -9,9 +9,9 @@ final result):
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions, the build of the kernel libraries from
    maskunet_tpu_torch/csrc (seconds, ptxas registers and spills; those of
-   K4's, K1/K2's and K3/K5/K7's wgmma instantiations named, and 0 spill bytes
-   required: phases device_k4, device_k1 and device_k3), and the body K4,
-   K1/K2 and K3 run in bf16 at each C (wgmma or mma_sync).
+   K4's, K1/K2/K6's and K3/K5/K7's wgmma instantiations named, and 0 spill
+   bytes required: phases device_k4, device_k1 and device_k3), and the
+   body K4, K1/K2 and K3 run in bf16 at each C (wgmma or mma_sync).
 2. kernel: K1 `flash_fwd_nomax` against its plain PyTorch version at the
    six serving attention shapes (batch 8, 128x128 images) in bf16 and f32,
    plus a ragged shape, a fully-masked row (must give 0) and a NaN-poisoned
@@ -65,11 +65,14 @@ final result):
 10. online_time: K3 per attention shape (its body named) against its
     plain version, its bound and the library.
 11. tools: the A/B tools' K5 `softmax_ab.old_flash_fwd`, K6
-    `softmax_ab.nomax65_fwd` (clamped and not) and K7
+    `softmax_ab.nomax65_fwd` (clamped and not; its repack kernel
+    `softmax_ab.repack65` exactly) and K7
     `bf16_softmax_experiment.flash_fwd_bf16` against their plain versions
-    at the tools' attn6 inputs (K7 also at a ragged shape with a
-    fully-masked row), the three tool mains (the kernels' main path), then
-    each kernel's time, plain time, bound and library time.
+    at the tools' attn6 inputs, and at ragged shapes: K5 and K7 with a
+    fully-masked row (the mean of V), K6 D and E with a general 65th
+    channel, scores past 60 (where D and E differ) and a NaN-poisoned key
+    row; the three tool mains (the kernels' main path), then each
+    kernel's time, plain time, bound and library time.
 
 It imports torch, numpy and the port, nothing of JAX.
 """
@@ -272,14 +275,15 @@ def phase_device() -> str:
              name for name, info in builds.items()
              if any("spill" in ln and "0 bytes spill stores, 0 bytes spill "
                     "loads" not in ln for ln in info["log"].splitlines())])
-    # K4: use_valid x clamp a C; K1/K2: use_valid a C; K3: use_valid a C,
-    # and K5 and K7 at C 64
+    # K4: use_valid x clamp a C; K1/K2: use_valid a C, and K6 D and E at
+    # C 64; K3: use_valid a C, and K5 and K7 at C 64
     phase_device_wgmma("device_k4", "K4", builds["flash_bwd"]["log"],
                        "bwd_wgmma", fk.flash_bwd_body, fk.BWD_WGMMA_CHANNELS,
                        4 * len(fk.BWD_WGMMA_CHANNELS))
     phase_device_wgmma("device_k1", "K1", builds["flash_fwd_nomax"]["log"],
                        "fwd_nomax_wgmma", fk.flash_fwd_nomax_body,
-                       fk.FWD_WGMMA_CHANNELS, 2 * len(fk.FWD_WGMMA_CHANNELS))
+                       fk.FWD_WGMMA_CHANNELS,
+                       2 * len(fk.FWD_WGMMA_CHANNELS) + 2)
     phase_device_wgmma("device_k3", "K3", builds["flash_fwd_online"]["log"],
                        "fwd_online_wgmma", fk.flash_fwd_online_body,
                        fk.ONLINE_WGMMA_CHANNELS,
@@ -755,6 +759,7 @@ def counted_wrappers() -> dict:
     return {"K1": fk.flash_fwd_nomax, "K2": fk.flash_fwd_nomax_lse,
             "K3": fk.flash_fwd_online, "K4": fk.flash_bwd,
             "K5": softmax_ab.old_flash_fwd, "K6": softmax_ab.nomax65_fwd,
+            "K6_repack": softmax_ab.repack65,
             "K7": bf16_tool.flash_fwd_bf16}
 
 
@@ -1034,8 +1039,13 @@ def phase_safe(card: str) -> dict:
 
 
 def tool_cases() -> list:
-    """(kernel, name, call, plain call, bound (bytes ms, ops ms), library
-    call) of K5, K6 (D and E) and K7 at their tools' attn6 inputs."""
+    """(kernel, name, call, plain call, output names, bound (bytes ms, ops
+    ms), {library: call}) of K5, K6 (D and E), K6's repack (of q65 and
+    k65, as one K6 call makes) and K7 at their tools' attn6 inputs. K6's
+    library call is SDPA at C 64 with the bias as an additive mask, which
+    computes its function on these inputs (q65 = [q log2e, 1], k65 = [k,
+    bias]: exp2(q65 . k65) = exp(q . k + bias)); `library_c65` is SDPA on
+    q65 / k65 themselves, which no fused backend takes at C 65."""
     q, k, v, bias = softmax_ab.attn6_inputs(BATCH)
     q65, k65 = softmax_ab.bias_as_channel(q, k, bias)
     bq, bk, bv, bbias = bf16_tool.attn6_inputs(BATCH)
@@ -1044,65 +1054,147 @@ def tool_cases() -> list:
     k6_bytes = (q65.numel() + k65.numel() + v.numel() + q.numel()) * e
     k6_ops = max(2 * BATCH * lq * lk * (C65 + c) / PEAK[torch.bfloat16],
                  BATCH * lq * lk / PEAK["exp2"])
+    # the repack reads q65 and k65 once and writes 64 bf16 channels and
+    # one f32 a row
+    repack_bytes = (q65.numel() + k65.numel()) * e \
+        + BATCH * (lq + lk) * (c * e + 4)
     k5_bound = bound_ms(q, k, bias)
     k7_bound = bound_ms(bq, bk, bbias)
     lse_ms = 4 * BATCH * lq / PEAK["bytes"] * 1e3
     sdpa = (lambda q_, k_, v_, b_: lambda: F.scaled_dot_product_attention(
         q_[:, None], k_[:, None], v_[:, None],
         attn_mask=b_[:, None].to(q_.dtype), scale=1.0))
+    sdpa65 = (lambda: F.scaled_dot_product_attention(
+        q65[:, None], k65[:, None], v[:, None], scale=math.log(2.0)))
+    k6_bound = (k6_bytes / PEAK["bytes"] * 1e3, k6_ops * 1e3)
     return [
         ("K5", "old_flash_fwd",
          lambda: softmax_ab.old_flash_fwd(q, k, v, bias),
          lambda: softmax_ab.old_flash_fwd_reference(q, k, v, bias),
-         (k5_bound[0] + lse_ms, k5_bound[1]), sdpa(q, k, v, bias)),
-        ("K6", "nomax65_fwd_D",
-         lambda: softmax_ab.nomax65_fwd(q65, k65, v, True),
-         lambda: softmax_ab.nomax65_fwd_reference(q65, k65, v, True),
-         (k6_bytes / PEAK["bytes"] * 1e3, k6_ops * 1e3),
-         lambda: F.scaled_dot_product_attention(
-             q65[:, None], k65[:, None], v[:, None], scale=math.log(2.0))),
-        ("K6", "nomax65_fwd_E",
-         lambda: softmax_ab.nomax65_fwd(q65, k65, v, False),
-         lambda: softmax_ab.nomax65_fwd_reference(q65, k65, v, False),
-         (k6_bytes / PEAK["bytes"] * 1e3, k6_ops * 1e3),
-         lambda: F.scaled_dot_product_attention(
-             q65[:, None], k65[:, None], v[:, None], scale=math.log(2.0))),
+         ("o", "lse"), (k5_bound[0] + lse_ms, k5_bound[1]),
+         {"library": sdpa(q, k, v, bias)}),
+        *(("K6", f"nomax65_fwd_{variant}",
+           functools.partial(softmax_ab.nomax65_fwd, q65, k65, v, clamp),
+           functools.partial(softmax_ab.nomax65_fwd_reference, q65, k65, v,
+                             clamp),
+           ("o",), k6_bound,
+           {"library": sdpa(q, k, v, bias), "library_c65": sdpa65})
+          for variant, clamp in (("D", True), ("E", False))),
+        ("K6_repack", "repack65",
+         lambda: (*softmax_ab.repack65(q65), *softmax_ab.repack65(k65)),
+         lambda: (*softmax_ab.repack65_reference(q65),
+                  *softmax_ab.repack65_reference(k65)),
+         ("q64", "qa", "k64", "kb"), (repack_bytes / PEAK["bytes"] * 1e3, 0.0),
+         {}),
         ("K7", "flash_fwd_bf16", lambda: bf16_tool.flash_fwd_bf16(
             bq, bk, bv, bbias),
          lambda: bf16_tool.flash_fwd_bf16_reference(bq, bk, bv, bbias),
-         (k7_bound[0] + lse_ms, k7_bound[1]), sdpa(bq, bk, bv, bbias)),
+         ("o", "lse"), (k7_bound[0] + lse_ms, k7_bound[1]),
+         {"library": sdpa(bq, bk, bv, bbias)}),
     ]
 
 
+def tool_edge_cases() -> list:
+    """(kernel, name, call, plain call, output names, expected(outputs))
+    of the tools' kernels at ragged shapes, checked only: K5 and K7 where
+    Lq and Lk stop short of a tile (Lk one past the 128-key tile, and three
+    tiles and 50 keys), with batch row 1 fully masked (the mean of V); K6
+    D and E at Lq 37 and Lk 129 and 131 (so that k65's rows start off any
+    16-byte boundary) with a 65th channel that is random, 0 and negative,
+    scores past 60 on some rows (where D and E differ), and a NaN in one
+    key row of batch row 1 (NaN there); K6's repack of those inputs,
+    exactly."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cases = []
+    for lq, lk in ((37, 129), (150, 3 * 128 + 50)):
+        q = (torch.randn(2, lq, 64, generator=gen, device="cuda")
+             * 0.125).bfloat16()
+        k, v = (torch.randn(2, lk, 64, generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        bias = fa.mask_to_bias(torch.rand(2, lk, generator=gen,
+                                          device="cuda") < 0.5, 2, lk)
+        bias[1] = fa.NEG_INF
+        mean_v = v[1].float().mean(0).expand(lq, 64).bfloat16()
+
+        def mean_of_v(outs, mean_v=mean_v):
+            return agreement(outs[0][1], mean_v)["ok"]
+
+        for kname, name, kernel, plain in (
+                ("K5", "old_flash_fwd", softmax_ab.old_flash_fwd,
+                 softmax_ab.old_flash_fwd_reference),
+                ("K7", "flash_fwd_bf16", bf16_tool.flash_fwd_bf16,
+                 bf16_tool.flash_fwd_bf16_reference)):
+            cases.append((kname, f"{name}_q{lq}_k{lk}_masked_row",
+                          functools.partial(kernel, q, k, v, bias),
+                          functools.partial(plain, q, k, v, bias),
+                          ("o", "lse"), mean_of_v))
+    for lk in (129, 131):
+        q65, k65 = (torch.randn(2, n, 65, generator=gen, device="cuda")
+                    for n in (37, lk))
+        q65[..., :64] *= 0.35
+        q65[:, ::5, 64] = 0.0                    # qa 0 on every 5th row
+        q65[:, 1::3, 64] *= -1.0
+        # s past 60 (~80) where qa = 40 meets kb = 2; |qa kb| stays below
+        # ~100 elsewhere, so that E's exp2 stays finite
+        q65[0, :4, 64] = 40.0
+        k65[..., 64] *= 0.5
+        k65[0, ::9, 64] = 2.0
+        k65[1, 3] = float("nan")
+        q65, k65 = q65.bfloat16(), k65.bfloat16()
+        v = torch.randn(2, lk, 64, generator=gen, device="cuda").bfloat16()
+        for variant, clamp in (("D", True), ("E", False)):
+            other = softmax_ab.nomax65_fwd_reference(q65, k65, v, not clamp)
+
+            def k6_expected(outs, other=other):
+                o = outs[0]
+                return bool(torch.isnan(o[1]).all()
+                            and torch.isfinite(o[0]).all()
+                            and not torch.equal(o[0, :4], other[0, :4]))
+
+            cases.append(("K6", f"nomax65_fwd_{variant}_q37_k{lk}",
+                          functools.partial(softmax_ab.nomax65_fwd, q65, k65,
+                                            v, clamp),
+                          functools.partial(softmax_ab.nomax65_fwd_reference,
+                                            q65, k65, v, clamp),
+                          ("o",), k6_expected))
+        cases.append(("K6_repack", f"repack65_q37_k{lk}",
+                      lambda q65=q65, k65=k65: (*softmax_ab.repack65(q65),
+                                                *softmax_ab.repack65(k65)),
+                      lambda q65=q65, k65=k65: (
+                          *softmax_ab.repack65_reference(q65),
+                          *softmax_ab.repack65_reference(k65)),
+                      ("q64", "qa", "k64", "kb"), None))
+    return cases
+
+
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal bit for bit (NaN included)."""
+    ints = {2: torch.int16, 4: torch.int32}[want.element_size()]
+    return got.dtype == want.dtype and torch.equal(got.view(ints),
+                                                   want.view(ints))
+
+
 def phase_tools(card: str) -> dict:
-    """K5, K6 and K7 against their plain versions at the tools' inputs,
-    the three tool mains (the launches counted), then each kernel timed.
-    Returns {kernel: {launches, max_abs_err, ms, plain_ms, library_ms,
+    """K5, K6 and its repack, and K7 against their plain versions at the
+    tools' inputs and the edge cases, the three tool mains (the launches
+    counted), then each kernel timed. Returns {kernel: {launches,
+    max_abs_err, ms, plain_ms, library_ms (K6 also library_c65_ms),
     bytes_ms, ops_ms, bound_ms}} (K6: the clamped variant D's times)."""
     out = {}
     cases = tool_cases()
-    checks = [case[:4] for case in cases]
-    # K7 at a ragged shape (Lk one past its key tile) with batch row 1
-    # fully masked (the mean of V), checked only
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    rq = (torch.randn(2, 37, 64, generator=gen, device="cuda")
-          * 0.125).bfloat16()
-    rk, rv = (torch.randn(2, 129, 64, generator=gen, device="cuda").bfloat16()
-              for _ in range(2))
-    rbias = fa.mask_to_bias(torch.rand(2, 129, generator=gen,
-                                       device="cuda") < 0.5, 2, 129)
-    rbias[1] = fa.NEG_INF
-    checks.append(("K7", "flash_fwd_bf16_ragged",
-                   lambda: bf16_tool.flash_fwd_bf16(rq, rk, rv, rbias),
-                   lambda: bf16_tool.flash_fwd_bf16_reference(rq, rk, rv,
-                                                              rbias)))
-    for kname, name, call, plain in checks:
+    checks = [(*case[:5], None) for case in cases] + tool_edge_cases()
+    for kname, name, call, plain, names, expected in checks:
         got, want = call(), plain()
         torch.cuda.synchronize()
         got, want = ((got, want) if isinstance(got, tuple)
                      else ((got,), (want,)))
-        outs = {n: agreement(g, w) for n, g, w in zip(("o", "lse"), got, want)}
-        ok = all(a["ok"] for a in outs.values())
+        outs = {n: agreement(g, w) for n, g, w in zip(names, got, want)}
+        if kname == "K6_repack":                 # a copy: exact
+            for n, g, w in zip(names, got, want):
+                outs[n]["expected"] = same_bits(g, w)
+        elif expected is not None:
+            outs[names[0]]["expected"] = expected(got)
+        ok = all(a["ok"] and a.get("expected", True) for a in outs.values())
         emit(phase="tools", case=name, dtype="bfloat16",
              shape=list(got[0].shape), outputs=outs, ok=ok)
         check(ok, f"tools {name}")
@@ -1118,17 +1210,19 @@ def phase_tools(card: str) -> dict:
     torch.cuda.synchronize()
     counts = kernel_launches()
     emit(phase="tool_mains", card=card, printed=printed, launches=counts)
-    check(all(counts[kn] > 0 for kn in ("K5", "K6", "K7")),
-          f"the tool mains launch K5, K6 and K7: {counts}")
+    check(all(counts[kn] > 0 for kn in ("K5", "K6", "K6_repack", "K7")),
+          f"the tool mains launch K5, K6 and its repack, and K7: {counts}")
     check(all(math.isfinite(float(t)) for p in printed.values()
               for t in p["ms"].values()), "tool mains: finite times")
 
-    for kname, name, call, plain, (t_bytes, t_ops), lib in cases:
+    for kname, name, call, plain, _, (t_bytes, t_ops), libs in cases:
         row = {"ms": device_ms(call, iters=20),
                "plain_ms": device_ms(plain, iters=2),
-               "library_ms": device_ms(lib, iters=20),
+               **{f"{lib}_ms": device_ms(fn, iters=20)
+                  for lib, fn in libs.items()},
                "bytes_ms": t_bytes, "ops_ms": t_ops,
                "bound_ms": max(t_bytes, t_ops)}
+        row.setdefault("library_ms", None)
         emit(phase="tool_time", card=card, kernel=kname, case=name,
              batch=BATCH, dtype="bfloat16", **row,
              bound_by="bytes" if t_bytes > t_ops else "operations",
@@ -1177,11 +1271,11 @@ def main() -> int:
     tools = phase_tools(card)
     # every kernel of the port; K1-K4 times are summed over the six
     # attention shapes (one forward's or one step's launches), K5-K7's are
-    # one call at their tool's attn6 inputs (K6: variant D), bf16, batch
-    # 8; launches are those of the paths' own runs: 16 served requests
-    # (K1), one training step (K2), 16 safe requests and one safe step
-    # (K3), one step of each path (K4, clamped then not), the tool mains
-    # (K5-K7)
+    # one call at their tool's attn6 inputs (K6: variant D, its repack
+    # included; the repack's own line: the two it makes), bf16, batch 8;
+    # launches are those of the paths' own runs: 16 served requests (K1),
+    # one training step (K2), 16 safe requests and one safe step (K3), one
+    # step of each path (K4, clamped then not), the tool mains (K5-K7)
     fwd_src = "maskunet_tpu_torch/csrc/flash_fwd_nomax.cu"
     online_src = "maskunet_tpu_torch/csrc/flash_fwd_online.cu"
     fwd_bodies = {str(c): fk.flash_fwd_nomax_body(c, torch.bfloat16)
@@ -1212,10 +1306,13 @@ def main() -> int:
         kernel_entry("old_flash_fwd", online_src, "tools/softmax_ab.py:29",
                      tools["K5"]["launches"], tools["K5"]["max_abs_err"],
                      tools["K5"], bodies_bf16={"64": online_bodies["64"]}),
-        kernel_entry("nomax65_fwd",
-                     "maskunet_tpu_torch/csrc/flash_fwd_nomax65.cu",
-                     "tools/softmax_ab.py:157", tools["K6"]["launches"],
-                     tools["K6"]["max_abs_err"], tools["K6"]),
+        kernel_entry("nomax65_fwd", fwd_src, "tools/softmax_ab.py:157",
+                     tools["K6"]["launches"], tools["K6"]["max_abs_err"],
+                     tools["K6"], bodies_bf16={"64": "wgmma"},
+                     library_c65_ms=tools["K6"]["library_c65_ms"]),
+        kernel_entry("repack65", fwd_src, "tools/softmax_ab.py:157",
+                     tools["K6_repack"]["launches"],
+                     tools["K6_repack"]["max_abs_err"], tools["K6_repack"]),
         kernel_entry("flash_fwd_bf16", online_src,
                      "tools/bf16_softmax_experiment.py:32",
                      tools["K7"]["launches"], tools["K7"]["max_abs_err"],

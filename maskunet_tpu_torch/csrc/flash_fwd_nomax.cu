@@ -93,6 +93,35 @@
 // Entry points: `flash_fwd_nomax`, `flash_fwd_nomax_lse` and
 // `flash_fwd_nomax_body` below (plain C, bound with ctypes). The lse
 // output costs one f32 store per query row.
+//
+// K6. The same source also replaces the Pallas TPU kernel `_nomax65_kernel`
+// (tools/softmax_ab.py:157-181, launched at :191 in `nomax65_fwd`),
+// variants D and E of the softmax A/B tool, whose inputs carry the bias
+// inside the product: q65 = [q * log2e, 1] and k65 = [k, bias], both
+// [B, L, 65] bf16, and v [B, Lk, 64] bf16. Per (batch, query row):
+//
+//   s  = q65 . k65                     f32 accumulation over 65 channels
+//   p  = exp2(min(s, 60))              D (NaN kept); exp2(s) for E
+//   O  = (p_v . v) / max(l, 1e-30)     as above; no lse, no use_valid
+//
+// A q65 or k65 row is 130 bytes: no TMA map (16-byte strides) and no
+// cp.async (16-byte alignment) can read it. So K6 is two kernels:
+//
+//   * `repack65` (entry `flash_repack65`) reads a [N, 65] tensor once, by
+//     coalesced 2-byte loads through shared memory, and writes its first
+//     64 channels as [N, 64] bf16 (128-byte rows) and its 65th as f32
+//     [N]: q64 and qa, k64 and kb. Bound by bytes: ~54 MB at the tool's
+//     attn6 shape, ~0.016 ms at the card's 3.35 TB/s;
+//   * a mode of the bf16 wgmma body (entry `flash_fwd_nomax65`) on q64,
+//     k64 and v with K1's tiles and schedule at C = 64, which takes q as
+//     given (no q*qmul pass), stages kb a step ahead where K1 stages the
+//     bias, and scores s = fma(qa, kb, q64 . k64) (exact: qa kb is a
+//     product of two bf16 values) with the clamp for D and none for E
+//     (but at 128, from where exp2 is +inf anyway: `kExp2Inf`).
+//     Keys past Lk read k = 0 and kb = 0, whose p = exp2(0) = 1 no
+//     sentinel in kb could zero for every qa (qa * -inf is NaN at qa = 0);
+//     the last key tile's softmax selects p = 0 there instead, the others
+//     need no select. A NaN in an in-range k65 row still gives NaN.
 
 #include <cuda.h>  // CUtensorMap and its enums only: nothing links libcuda
 #include <cuda_bf16.h>
@@ -100,13 +129,23 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
 constexpr float kValidThreshold = -5e29f;  // NEG_INF * 0.5
 constexpr float kClamp = 60.0f;            // _NOMAX_CLAMP
+// exp2 of this and of anything above it is +inf in f32: K6's variant E
+// clamps there, which leaves exp2(s) as it is and gives E the same code
+// as D (ptxas schedules an unclamped softmax worse: more moves, slower)
+constexpr float kExp2Inf = 128.0f;
 constexpr float kMinL = 1e-30f;
 constexpr int kBQ = 64;                    // query rows per f32 block
+
+// The scores of the wgmma body: K1/K2's s + bias clamped at 60 (kBias), or
+// K6's fma(qa, kb, s) clamped at 60 (kChannel, variant D) or not
+// (kChannelNoClamp, variant E).
+enum Mode { kBias = 0, kChannel = 1, kChannelNoClamp = 2 };
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -495,6 +534,7 @@ constexpr int kTile = 64 * 128;   // 64 rows of one 128-byte line
 constexpr bool kProducerWarp = true;
 constexpr bool kPingPong64 = false;
 constexpr bool kPingPong128 = true;
+constexpr bool kPingPongK6 = true;  // K6's modes (C = 64): they gain from it
 constexpr int kConsumers = 2;     // consumer warpgroups (64 queries each)
 constexpr int kConsumers256 = 1;  // consumer warpgroups, C 256
 constexpr int kKeys64 = 128;      // keys a step, C 64
@@ -760,8 +800,12 @@ struct FwdWgTile {
 // One block: batch row blockIdx.y, queries blockIdx.x * BQ ..; consumer
 // warpgroup wg owns queries wg * 64 .. wg * 64 + 63 of them, and with PW
 // the last warpgroup streams the tiles; PP: ping-pong. q, k, v, o: 3-D
-// maps (C, L, B), box (64, 64 or BK, 1), 128-byte swizzle.
-template <int C, int BK, int NS, int WGS, bool PW, bool PP, bool USE_VALID>
+// maps (C, L, B), box (64, 64 or BK, 1), 128-byte swizzle. MODE kBias
+// (K1/K2): `bias` [B, 1, Lk], `lse` null or [B, 1, Lq] written; the K6
+// modes: `bias` is kb [B, Lk] and `lse` is qa [B, Lq], read (one
+// signature for all, so that K1/K2's instantiations stay as they were).
+template <int C, int BK, int NS, int WGS, bool PW, bool PP, bool USE_VALID,
+          int MODE>
 __global__ void __launch_bounds__(FwdWgTile<C, BK, NS, WGS, PW>::threads, 1)
 fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
@@ -771,6 +815,8 @@ fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
                 int lq, int lk, float qmul) {
   using T = FwdWgTile<C, BK, NS, WGS, PW>;
   constexpr int H = T::H, NB = (BK + 127) / 128;
+  static_assert(MODE == kBias || (C == 64 && !USE_VALID),
+                "K6 takes C = 64 and no use_valid");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -845,13 +891,21 @@ fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
   const int tc_mine = 1 + WGS + wg, tc_next = 1 + WGS + (wg + 1) % WGS;
   if (PP && wg == WGS - 1) tc_arrive(1 + WGS);
 
+  // K6: qa of this thread's rows r0 and r0 + 8 (0 past lq)
+  float qa0 = 0.f, qa1 = 0.f;
+  if constexpr (MODE != kBias) {
+    const float* qab = lse + size_t(b) * lq;
+    if (qw + r0 < lq) qa0 = qab[qw + r0];
+    if (qw + r0 + 8 < lq) qa1 = qab[qw + r0 + 8];
+  }
+
   // q * qmul rounded to bf16 in place, as the TPU kernel rounds it (JAX's
   // weak typing): the scaling is elementwise, so the swizzle does not
   // matter. qmul is a bf16 value (the wrapper rounds it so) and the
   // product of two bf16 is exact in f32, so one bf16x2 multiply rounds as
-  // f32-then-bf16 does.
+  // f32-then-bf16 does. K6 takes q as given.
   bar_wait(qbar, 0);
-  {
+  if constexpr (MODE == kBias) {
     const __nv_bfloat162 qm2 = __float2bfloat162_rn(qmul);
 #pragma unroll
     for (int i = t; i < H * kTile / 16; i += 128) {
@@ -861,8 +915,8 @@ fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
       for (int e = 0; e < 4; ++e) h2[e] = __hmul2(h2[e], qm2);
       reinterpret_cast<uint4*>(qsw)[i] = raw;
     }
+    fence_async_smem();
   }
-  fence_async_smem();
 
   float oacc[H][32];
 #pragma unroll
@@ -873,17 +927,19 @@ fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
   float st[BK / 2];          // S of key tile j, then its p in f32
   uint32_t pa[BK / 4];       // p of key tile j - 1 as bf16 A fragments
 
-  // Tile j's bias by plain loads into registers, one key a thread,
-  // issued a step ahead so that they land meanwhile (a TMA map needs
-  // 16-byte strides, which a bias row of 4 Lk bytes denies). Keys past lk
-  // get -inf: with their zero-filled K rows, p = exp2(-inf) = 0.
+  // Tile j's bias (K6: kb) by plain loads into registers, one key a
+  // thread, issued a step ahead so that they land meanwhile (a TMA map
+  // needs 16-byte strides, which a bias row of 4 Lk bytes denies). Keys
+  // past lk get -inf: with their zero-filled K rows, p = exp2(-inf) = 0
+  // (K6: 0, and the last tile's softmax zeroes their p).
   float bv[NB];
   auto load_bias = [&](int j) {
 #pragma unroll
     for (int n = 0; n < NB; ++n) {
       const int i = t + 128 * n;
-      bv[n] = i < BK && j * BK + i < lk ? biasb[j * BK + i]
-                                        : __int_as_float(0xff800000);
+      bv[n] = i < BK && j * BK + i < lk
+                  ? biasb[j * BK + i]
+                  : (MODE == kBias ? __int_as_float(0xff800000) : 0.f);
     }
   };
   // Waits for tile j's K and V, and moves its bias to shared memory.
@@ -934,10 +990,11 @@ fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
                  pa[4 * kk + 3], sw128_desc(vt + h * T::KT + 2048 * kk));
     wgmma_commit();
   };
-  // p = exp2(min(s + bias, 60)) [* valid] in f32, summed into l (two
-  // partial sums a row, to halve the chain of dependent adds)
+  // p = exp2(min(s + bias, 60)) [* valid] in f32 (K6: s = fma(qa, kb,
+  // s), clamped for D; in the `last` key tile p = 0 past lk), summed into
+  // l (two partial sums a row, to halve the chain of dependent adds)
   float l0b = 0.f, l1b = 0.f;
-  auto softmax = [&](int j) {
+  auto softmax = [&](int j, auto last) {
     fence_acc(st);
     const float* bt = bsw + (j & 1) * BK;
 #pragma unroll
@@ -947,13 +1004,33 @@ fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float bb = (e & 1) ? b2.y : b2.x;
-        float p = ex2(clamp_hi(st[4 * jj + e] + bb));
+        float p;
+        if constexpr (MODE == kBias) {
+          p = ex2(clamp_hi(st[4 * jj + e] + bb));
+        } else {
+          const float s = fmaf(e < 2 ? qa0 : qa1, bb, st[4 * jj + e]);
+          p = ex2(MODE == kChannel ? clamp_hi(s)
+                                   : (s > kExp2Inf ? kExp2Inf : s));
+          if constexpr (decltype(last)::value)
+            p = j * BK + 8 * jj + 2 * tq4 + (e & 1) < lk ? p : 0.f;
+        }
         if (USE_VALID) p *= (bb > kValidThreshold) ? 1.f : 0.f;
         float& l = e < 2 ? (jj & 1 ? l0b : l0) : (jj & 1 ? l1b : l1);
         l += p;
         st[4 * jj + e] = p;
       }
     }
+  };
+  // K6 selects past lk in its last key tile only (a select, not a product
+  // on a divergent path); K1/K2's keys past lk have bias -inf
+  auto softmax_tile = [&](int j) {
+    if constexpr (MODE != kBias) {
+      if (j == nk - 1) {
+        softmax(j, std::true_type{});
+        return;
+      }
+    }
+    softmax(j, std::false_type{});
   };
   // P_j as bf16 A fragments, once the last P V has read the old ones
   auto pack = [&]() {
@@ -987,7 +1064,7 @@ fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
   issue_s(0);
   hand_over(false);
   wgmma_wait<0>();
-  softmax(0);
+  softmax_tile(0);
   pack();
   for (int j = 1; j < nk; ++j) {
     wait_tile(j);
@@ -996,7 +1073,7 @@ fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
     issue_pv(j - 1);
     hand_over(false);
     wgmma_wait<1>();  // S_j (groups complete in order)
-    softmax(j);
+    softmax_tile(j);
     wgmma_wait<0>();  // P_{j-1} V_{j-1}
     release(j - 1);
     pack();
@@ -1039,10 +1116,49 @@ fwd_nomax_wgmma(const __grid_constant__ CUtensorMap tq,
     bulk_commit();
     bulk_wait_read();  // the tile stays in shared memory until read
   }
-  if (lse != nullptr && tq4 == 0) {  // lse2 = log2(max(l, 1e-30)), NaN kept
-    float* lb = lse + size_t(b) * lq;
-    if (qw + r0 < lq) lb[qw + r0] = log2f(d0);
-    if (qw + r0 + 8 < lq) lb[qw + r0 + 8] = log2f(d1);
+  if constexpr (MODE == kBias) {
+    if (lse != nullptr && tq4 == 0) {  // lse2 = log2(max(l, 1e-30)), NaN kept
+      float* lb = lse + size_t(b) * lq;
+      if (qw + r0 < lq) lb[qw + r0] = log2f(d0);
+      if (qw + r0 + 8 < lq) lb[qw + r0 + 8] = log2f(d1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6's repack (see the header): rows of 65 bf16 channels, 2-byte aligned,
+// into rows of 64 and the 65th channel as f32. Each block stages
+// kRepackRows rows (one contiguous run of 130-byte rows) in shared memory
+// by coalesced 2-byte loads, then writes 16-byte pieces of the 128-byte
+// rows and one f32 a row; blocks stride over the rows.
+// ---------------------------------------------------------------------------
+
+constexpr int kRepackRows = 64;
+constexpr int kRepackThreads = 256;
+
+__global__ void __launch_bounds__(kRepackThreads)
+repack65(const unsigned short* __restrict__ x65, uint4* __restrict__ x64,
+         float* __restrict__ xa, long long n) {
+  __shared__ unsigned short tile[kRepackRows * 65];
+  const int tid = threadIdx.x;
+  for (long long r0 = (long long)blockIdx.x * kRepackRows; r0 < n;
+       r0 += (long long)gridDim.x * kRepackRows) {
+    const int rows = n - r0 < kRepackRows ? int(n - r0) : kRepackRows;
+    const unsigned short* src = x65 + r0 * 65;
+#pragma unroll 4
+    for (int i = tid; i < rows * 65; i += kRepackThreads) tile[i] = src[i];
+    __syncthreads();
+    for (int i = tid; i < rows * 8; i += kRepackThreads) {
+      const unsigned short* h = tile + (i >> 3) * 65 + (i & 7) * 8;
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[e] = uint32_t(h[2 * e]) | (uint32_t(h[2 * e + 1]) << 16);
+      x64[r0 * 8 + i] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    for (int r = tid; r < rows; r += kRepackThreads)
+      xa[r0 + r] = __uint_as_float(uint32_t(tile[r * 65 + 64]) << 16);
+    __syncthreads();  // the next run refills the tile
   }
 }
 
@@ -1124,16 +1240,19 @@ bool map_3d(EncodeTiled enc, CUtensorMap* m, const void* base, int c, int l,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int C, bool UV>
+template <int C, bool UV, int MODE = kBias>
 cudaError_t run_wgmma(const void* q, const void* k, const void* v,
                       const void* bias, void* o, float* lse, int b, int lq,
                       int lk, float qmul, cudaStream_t stream) {
   constexpr int BK = C == 64 ? kKeys64 : C == 128 ? kKeys128 : kKeys256;
   constexpr int NS = C == 64 ? kStages64 : C == 128 ? kStages128 : kStages256;
   constexpr int WGS = C == 256 ? kConsumers256 : kConsumers;
-  constexpr bool PP = C == 64 ? kPingPong64 : C == 128 && kPingPong128;
+  constexpr bool PP = MODE != kBias ? kPingPongK6
+                     : C == 64     ? kPingPong64
+                                   : C == 128 && kPingPong128;
   using T = FwdWgTile<C, BK, NS, WGS, kProducerWarp>;
-  auto kernel = &fwd_nomax_wgmma<C, BK, NS, WGS, kProducerWarp, PP, UV>;
+  auto kernel =
+      &fwd_nomax_wgmma<C, BK, NS, WGS, kProducerWarp, PP, UV, MODE>;
   static std::atomic<uint32_t> set_on{0};
   cudaError_t err = allow_smem(kernel, T::smem, set_on);
   if (err != cudaSuccess) return err;
@@ -1224,6 +1343,41 @@ extern "C" int flash_fwd_nomax_lse(const void* q, const void* k,
                                    void* stream) {
   return dispatch(q, k, v, bias, o, static_cast<float*>(lse), b, lq, lk, c,
                   is_bf16, use_valid, qmul, stream);
+}
+
+// K6's repack: x65 [b, l, 65] bf16 (2-byte aligned) into x64 [b, l, 64]
+// bf16 (16-byte aligned) and xa [b, l] f32. Launches on `stream` and
+// returns cudaGetLastError() (0 on success).
+extern "C" int flash_repack65(const void* x65, void* x64, void* xa, int b,
+                              int l, void* stream) {
+  const long long n = (long long)b * l;
+  if (n <= 0) return int(cudaSuccess);
+  const long long blocks = (n + kRepackRows - 1) / kRepackRows;
+  repack65<<<unsigned(blocks < (1 << 20) ? blocks : (1 << 20)),
+             kRepackThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned short*>(x65), static_cast<uint4*>(x64),
+      static_cast<float*>(xa), n);
+  return int(cudaGetLastError());
+}
+
+// K6 on the repacked inputs: q64 [b, lq, 64], k64 and v [b, lk, 64], all
+// bf16 and 16-byte aligned; qa [b, lq] and kb [b, lk] f32; o [b, lq, 64]
+// bf16. `clamp` = 1 is variant D, 0 variant E. With no key o = 0 (a TMA
+// map cannot have length 0). Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+extern "C" int flash_fwd_nomax65(const void* q64, const void* qa,
+                                 const void* k64, const void* kb,
+                                 const void* v, void* o, int b, int lq,
+                                 int lk, int clamp, void* stream) {
+  if (b <= 0 || lq <= 0) return int(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (lk <= 0)
+    return int(cudaMemsetAsync(o, 0, size_t(b) * lq * 64 * 2, st));
+  float* qa_in = const_cast<float*>(static_cast<const float*>(qa));
+  return clamp ? int(run_wgmma<64, false, kChannel>(
+                     q64, k64, v, kb, o, qa_in, b, lq, lk, 1.f, st))
+               : int(run_wgmma<64, false, kChannelNoClamp>(
+                     q64, k64, v, kb, o, qa_in, b, lq, lk, 1.f, st));
 }
 
 // Which body the bf16 forward runs at C channels: 2 = wgmma

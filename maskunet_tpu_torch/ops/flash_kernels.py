@@ -12,10 +12,9 @@ and their plain PyTorch versions.
 - `flash_bwd` (K4): the merged backward `_bwd_kernel` (:323-389), with the
   clamp at 2^60 (after K2) or without it (`clamp=False`, after K3).
 
-Their CUDA sources, `csrc/flash_fwd_nomax.cu` (K1 and K2),
-`csrc/flash_fwd_online.cu` (K3, and the A/B tools' K5 and K7),
-`csrc/flash_fwd_nomax65.cu` (the tools' K6) and `csrc/flash_bwd.cu` (K4),
-are compiled for sm_90a with nvcc at the first launch of any of them, all
+Their CUDA sources, `csrc/flash_fwd_nomax.cu` (K1 and K2, and the A/B
+tools' K6 with its repack kernel), `csrc/flash_fwd_online.cu` (K3, and
+the tools' K5 and K7) and `csrc/flash_bwd.cu` (K4), are compiled for sm_90a with nvcc at the first launch of any of them, all
 at once, into `maskunet_tpu_torch/_build/` (shared libraries with plain C
 entry points, loaded with ctypes), and launch on the current CUDA stream.
 The wrappers of K5-K7 sit in `maskunet_tpu_torch/tools/`.
@@ -47,8 +46,7 @@ KERNEL_CHANNELS = (64, 128, 256)
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
-           for name in ("flash_fwd_nomax", "flash_fwd_online",
-                        "flash_fwd_nomax65", "flash_bwd")}
+           for name in ("flash_fwd_nomax", "flash_fwd_online", "flash_bwd")}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -215,7 +213,8 @@ _ENTRIES = {
                              + [_ptr]),
     "flash_fwd_online_bf16": ("flash_fwd_online", [_ptr] * 6 + [_int] * 4
                               + [_ptr]),
-    "flash_fwd_nomax65": ("flash_fwd_nomax65", [_ptr] * 4 + [_int] * 4
+    "flash_repack65": ("flash_fwd_nomax", [_ptr] * 3 + [_int] * 2 + [_ptr]),
+    "flash_fwd_nomax65": ("flash_fwd_nomax", [_ptr] * 6 + [_int] * 4
                           + [_ptr]),
     "flash_bwd": ("flash_bwd", [_ptr] * 10 + [_int] * 7 + [_float] * 2
                   + [_ptr]),
@@ -281,8 +280,8 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 # Batch rows a launch takes: every kernel puts the batch on the grid's y
 # dimension, which stops at 65,535. 65,528 is the largest multiple of 8
-# below it, so each chunk of an f32 [B, 1, L] row (bias, lse, delta) and of
-# K6's 130-byte rows still starts on a 16-byte boundary.
+# below it, so each chunk of an f32 [B, 1, L] row (bias, lse, delta, K6's
+# qa and kb) still starts on a 16-byte boundary.
 MAX_BATCH_ROWS = 65528
 
 
@@ -319,8 +318,8 @@ def _check_layout(name: str, t: torch.Tensor, device: torch.device,
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % align:
-        # the kernels read rows with 16-byte vector loads and cp.async
-        # (K6's 130-byte q65 / k65 rows with 2-byte loads)
+        # the kernels read rows with 16-byte vector loads, cp.async and
+        # TMA (K6's repack reads 130-byte q65 / k65 rows by 2-byte loads)
         raise ValueError(f"{name} must start on a {align}-byte boundary")
 
 

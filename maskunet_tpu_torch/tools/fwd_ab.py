@@ -1,14 +1,15 @@
 """A/B of variants of a forward kernel source on the card: the forward's
 counterpart of `bwd_ab` (the JAX package's is tools/fwd_sweep.py).
 
-`--source nomax` (the default) takes K1/K2's source
-(csrc/flash_fwd_nomax.cu), `--source online` K3/K7's
-(csrc/flash_fwd_online.cu). Each variant is the committed source with
-one text substitution, built with the library's own nvcc flags, held
-against the plain version and timed with CUDA events through the C entry
-(K1's, or K3's and K7's), in alternating order over the rounds, at three
-shapes of the ADE serving forward (batch 8, bf16; K7 at attn6 only, on
-its tool's inputs):
+`--source nomax` (the default) takes K1/K2's source, which also holds
+the tools' K6 (csrc/flash_fwd_nomax.cu), `--source online` K3's, which
+also holds K5 and K7 (csrc/flash_fwd_online.cu). Each variant is the
+committed source with one text substitution, built with the library's
+own nvcc flags, held against the plain version and timed with CUDA
+events through the C entries (K1's and K6's repack and kernel, or K3's,
+K5's and K7's), in alternating order over the rounds, at three shapes of
+the ADE serving forward (batch 8, bf16; K5, K6 D and E and K7 at attn6
+only, on their tools' inputs):
 
   attn6   16,384 queries x 9,216 compacted key slots, C 64, no use_valid
   attn1   4,096 queries x 2,560 compacted key slots, C 128, no use_valid
@@ -40,13 +41,22 @@ Variants (bf16 runs the wgmma body at every C unless named otherwise):
   c128_keys128  128 keys a step and a two-stage ring at C 128 (shared
              memory holds no more)
 
-Variants of the online source (K3 and K7 run K1's wgmma body with the
-running max, K5 the mma.sync body; unlike K1's source it takes turns at
-the tensor cores at C 64 too):
+K6 runs K1's wgmma body at C 64 in every variant but `mma_sync` (it has
+no mma.sync body), so the C 64 variants apply to it too (but `pingpong`:
+K6 takes turns at the tensor cores in the source), and one more:
+  k6_no_pingpong  K6 without ping-pong (K1's choice at C 64)
+  k6e_uncapped    K6's E takes exp2 of its scores as they are, not capped
+                  at 128 (the same results: exp2 is +inf from 128 on)
+
+Variants of the online source (K3, K5 and K7 run K1's wgmma body with
+the running max; unlike K1's source it takes turns at the tensor cores at
+C 64 too):
   source, mma_sync, producer0, c128_no_pingpong, stages3  as above
   c64_no_pingpong  no ping-pong at C 64 (K1's choice there)
   keys64           as above; for K7 that is its key tile, so its row is
                    held against the plain version at the source's 128
+  k5_expf          K5's p = __expf(s - m), a subtract and a multiply a
+                   score, in place of ex2 of one FMA
 
 It prints one JSON line per variant built (ptxas's registers and spills
 of the C = 64 bf16 instantiations) and per variant timed.
@@ -64,6 +74,7 @@ import torch
 from maskunet_tpu_torch.ops import flash_attention as fa
 from maskunet_tpu_torch.ops import flash_kernels as fk
 from maskunet_tpu_torch.tools import bf16_softmax_experiment as bf16_tool
+from maskunet_tpu_torch.tools import softmax_ab
 
 _WGMMA_C = ("constexpr bool wgmma_body(int c) "
             "{ return c == 64 || c == 128 || c == 256; }")
@@ -79,6 +90,9 @@ _WGS = "constexpr int kConsumers = 2;"
 _KEYS128 = "constexpr int kKeys128 = 64;"
 _STAGES128 = "constexpr int kStages128 = 4;"
 _PINGPONG64_ON = "constexpr bool kPingPong64 = true;"
+_EXP_BY_FMA = "constexpr bool kExpByFma = true;"
+_PINGPONG_K6 = "constexpr bool kPingPongK6 = true;"
+_E_CAP = "(s > kExp2Inf ? kExp2Inf : s)"
 
 
 def _on(line: str, old: str, new: str) -> tuple[str, str]:
@@ -101,12 +115,16 @@ _SUBS = {
     "c128_keys128": (_on(_KEYS128, "= 64", "= 128"),
                      _on(_STAGES128, "= 4", "= 2")),
     "c64_no_pingpong": (_on(_PINGPONG64_ON, "true", "false"),),
+    "k5_expf": (_on(_EXP_BY_FMA, "true", "false"),),
+    "k6_no_pingpong": (_on(_PINGPONG_K6, "true", "false"),),
+    "k6e_uncapped": ((_E_CAP, "s"),),
 }
 NOMAX_VARIANTS = ("source", "mma_sync", "c256_mma_sync", "producer0",
                   "pingpong", "c128_no_pingpong", "stages2", "stages3",
-                  "keys64", "keys256", "wg3", "c128_keys128")
+                  "keys64", "keys256", "wg3", "c128_keys128",
+                  "k6_no_pingpong", "k6e_uncapped")
 ONLINE_VARIANTS = ("source", "mma_sync", "producer0", "c64_no_pingpong",
-                   "c128_no_pingpong", "stages3", "keys64")
+                   "c128_no_pingpong", "stages3", "keys64", "k5_expf")
 
 
 def _sub(text: str, *pairs: tuple[str, str]) -> str:
@@ -127,10 +145,12 @@ def variants(src: str, names=NOMAX_VARIANTS) -> dict[str, str]:
 # source -> (library, C entries a variant is timed through, kernels whose
 # ptxas lines are printed: the C = 64 bf16 instantiations)
 _LIBRARIES = {
-    "nomax": ("flash_fwd_nomax", ("flash_fwd_nomax",),
+    "nomax": ("flash_fwd_nomax",
+              ("flash_fwd_nomax", "flash_repack65", "flash_fwd_nomax65"),
               ("fwd_nomax_wgmmaILi64E", "fwd_nomax_bf16ILi64E")),
     "online": ("flash_fwd_online",
-               ("flash_fwd_online", "flash_fwd_online_bf16"),
+               ("flash_fwd_online", "flash_fwd_online_exp",
+                "flash_fwd_online_bf16"),
                ("fwd_online_wgmmaILi64E", "fwd_online_bf16ILi64E")),
 }
 
@@ -185,9 +205,39 @@ def _inputs(lq: int, c: int, use_valid: bool, seed: int):
     return q, k, v, fa.mask_to_bias(mask, 8, lk), use_valid
 
 
-def _call(entry: str, fn, q, k, v, bias, uv):
-    """o of one launch of a variant's C `entry` (K1's, K3's or K7's) on
-    bf16 inputs, scale 1."""
+def _check_err(entry: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{entry} variant: CUDA error {err}")
+
+
+def _call_k6(fns: dict, q65, k65, v, clamp):
+    """o of K6 (D with `clamp`, else E) through a variant's entries: its
+    repack of q65 and k65 into a workspace, then its kernel."""
+    stream = torch.cuda.current_stream().cuda_stream
+    b, lq, _ = q65.shape
+    lk = k65.shape[1]
+    parts = []
+    for x65 in (q65, k65):
+        x64 = torch.empty(*x65.shape[:2], 64, dtype=x65.dtype,
+                          device=x65.device)
+        xa = torch.empty(x65.shape[:2], device=x65.device)
+        _check_err("flash_repack65", fns["flash_repack65"](
+            x65.data_ptr(), x64.data_ptr(), xa.data_ptr(), *x65.shape[:2],
+            stream))
+        parts += [x64.data_ptr(), xa.data_ptr()]
+    o = torch.empty(b, lq, 64, dtype=v.dtype, device=v.device)
+    _check_err("flash_fwd_nomax65", fns["flash_fwd_nomax65"](
+        *parts, v.data_ptr(), o.data_ptr(), b, lq, lk, int(clamp), stream))
+    return o
+
+
+def _call(entry: str, fns: dict, *inputs):
+    """o of one call of a variant's C `entry` (K1's, K3's, K5's, K6's or
+    K7's) on bf16 inputs, scale 1: (q, k, v, bias, use_valid), or for K6
+    (q65, k65, v, clamp)."""
+    if entry == "flash_fwd_nomax65":
+        return _call_k6(fns, *inputs)
+    q, k, v, bias, uv = inputs
     o = torch.empty_like(q)
     b, lq, c = q.shape
     lse = torch.empty(b, 1, lq, device=q.device)
@@ -196,11 +246,10 @@ def _call(entry: str, fn, q, k, v, bias, uv):
     if entry != "flash_fwd_nomax":
         head.append(lse.data_ptr())
     tail = [b, lq, k.shape[1], c]
-    if entry != "flash_fwd_online_bf16":
+    if entry in ("flash_fwd_nomax", "flash_fwd_online"):
         tail += [1, int(uv), fk.weak_scalar(fk._LOG2E, torch.bfloat16)]
-    err = fn(*head, *tail, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} variant: CUDA error {err}")
+    _check_err(entry, fns[entry](*head, *tail,
+                                 torch.cuda.current_stream().cuda_stream))
     return o
 
 
@@ -210,13 +259,21 @@ def _cases(source: str) -> dict:
     shapes = {"attn6": _inputs(16384, 64, False, 0),
               "attn1": _inputs(4096, 128, False, 2),
               "attn2": _inputs(1024, 256, True, 1)}
+    tool = softmax_ab.attn6_inputs(8)
     if source == "nomax":
-        return {s: ("flash_fwd_nomax", x,
-                    fk.flash_fwd_nomax_reference(*x[:4], 1.0, x[4]))
-                for s, x in shapes.items()}
+        cases = {s: ("flash_fwd_nomax", x,
+                     fk.flash_fwd_nomax_reference(*x[:4], 1.0, x[4]))
+                 for s, x in shapes.items()}
+        x6 = (*softmax_ab.bias_as_channel(*tool[:2], tool[3]), tool[2])
+        for label, clamp in (("k6_attn6", True), ("k6e_attn6", False)):
+            cases[label] = ("flash_fwd_nomax65", (*x6, clamp),
+                            softmax_ab.nomax65_fwd_reference(*x6, clamp))
+        return cases
     cases = {s: ("flash_fwd_online", x,
                  fk.flash_fwd_online_reference(*x[:4], 1.0, x[4])[0])
              for s, x in shapes.items()}
+    cases["k5_attn6"] = ("flash_fwd_online_exp", (*tool, False),
+                         softmax_ab.old_flash_fwd_reference(*tool)[0])
     x7 = (*bf16_tool.attn6_inputs(8), False)
     cases["k7_attn6"] = ("flash_fwd_online_bf16", x7,
                          bf16_tool.flash_fwd_bf16_reference(*x7[:4])[0])
@@ -247,8 +304,7 @@ def main() -> int:
             fns = built[name][0]
             row = {"source": args.source, "round": rnd, "variant": name}
             for label, (entry, inputs, want) in cases.items():
-                fn = fns[entry]
-                got = _call(entry, fn, *inputs)
+                got = _call(entry, fns, *inputs)
                 torch.cuda.synchronize()
                 w = want.float()
                 row[f"{label}_rms_err_over_rms_plain"] = float(
@@ -260,7 +316,7 @@ def main() -> int:
                     end = torch.cuda.Event(enable_timing=True)
                     start.record()
                     for _ in range(20):
-                        _call(entry, fn, *inputs)
+                        _call(entry, fns, *inputs)
                     end.record()
                     end.synchronize()
                     best = min(best, start.elapsed_time(end) / 20)

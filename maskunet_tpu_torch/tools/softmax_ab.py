@@ -4,15 +4,18 @@ Counterpart of tools/softmax_ab.py, with its two kernels:
 
 - K5 `old_flash_fwd`: the JAX tool's `_old_fwd_kernel` (tools/softmax_ab.py
   :29-60), natural exp with an online max, no q scale, no use_valid; CUDA
-  in csrc/flash_fwd_online.cu (entry `flash_fwd_online_exp`).
+  in csrc/flash_fwd_online.cu (entry `flash_fwd_online_exp`, K3's wgmma
+  body).
 - K6 `nomax65_fwd`: its `_nomax65_kernel` (:157-181), no max, the bias as
   a 65th channel of q and k, clamped at 2^60 or not; CUDA in
-  csrc/flash_fwd_nomax65.cu.
+  csrc/flash_fwd_nomax.cu: `repack65` splits q65 and k65 into 64
+  channels (q64, k64) and the 65th as f32 (qa, kb), then a mode of K1's
+  wgmma body scores q64 k64^T + qa kb^T (entry `flash_fwd_nomax65`).
 
 Both take bf16 at C = 64 only (V's C for K6), the one instantiation the
 tool launches; a wrapper raises on anything else. CPU tensors run their
 plain versions, CUDA tensors launch the kernels, counted in
-`<wrapper>.launches`.
+`<wrapper>.launches` (K6's repack in `repack65.launches`).
 
     python -m maskunet_tpu_torch.tools.softmax_ab [batch]      # A/B/C
     python -m maskunet_tpu_torch.tools.softmax_ab 2 [batch]    # C/D/E
@@ -112,11 +115,64 @@ def nomax65_fwd_reference(q65: torch.Tensor, k65: torch.Tensor,
     return out
 
 
+def repack65_reference(x65: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K6's repack: (x64 [B, L, 64], the first 64
+    channels of x65 [B, L, 65], xa [B, L] f32, its 65th channel)."""
+    return x65[..., :C].contiguous(), x65[..., C].float()
+
+
+def repack65(x65: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6's repack kernel on x65 [B, L, 65] bf16 (2-byte aligned rows of
+    130 bytes, which no TMA map or cp.async reads): (x64 [B, L, 64] bf16,
+    xa [B, L] f32), as `repack65_reference`."""
+    if x65.dim() != 3 or x65.shape[-1] != C + 1 \
+            or x65.dtype != torch.bfloat16:
+        raise ValueError(f"repack65 takes bf16 [B, L, 65], got {x65.dtype} "
+                         f"{tuple(x65.shape)}")
+    if not fk._on_card(x65):
+        return repack65_reference(x65)
+    fk._check_layout("x65", x65, x65.device, align=2)
+    b, l, _ = x65.shape
+    x64 = torch.empty(b, l, C, dtype=x65.dtype, device=x65.device)
+    xa = torch.empty(b, l, device=x65.device)
+    if x65.numel():
+        fk._launch("flash_repack65", x65.device, x65.data_ptr(),
+                   x64.data_ptr(), xa.data_ptr(), b, l)
+        repack65.launches += 1
+    return x64, xa
+
+
+repack65.launches = 0
+
+
+def nomax65_split_reference(q64: torch.Tensor, qa: torch.Tensor,
+                            k64: torch.Tensor, kb: torch.Tensor,
+                            v: torch.Tensor, clamp: bool = True
+                            ) -> torch.Tensor:
+    """Plain version of K6's kernel on the repacked inputs: s = q64 k64^T
+    + qa kb^T in f32 (qa kb exact: a product of two bf16 values), then as
+    `nomax65_fwd_reference`."""
+    out = torch.empty(*q64.shape[:2], v.shape[-1], dtype=v.dtype,
+                      device=v.device)
+    for i in range(q64.shape[0]):
+        s = torch.matmul(q64[i].float(), k64[i].float().transpose(0, 1)) \
+            + qa[i][:, None] * kb[i][None, :]
+        if clamp:
+            s = torch.clamp(s, max=fk._NOMAX_CLAMP)
+        p = torch.exp2(s)
+        l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+        acc = torch.matmul(p.to(v.dtype).float(), v[i].float())
+        out[i] = (acc / l).to(v.dtype)
+    return out
+
+
 def nomax65_fwd(q65: torch.Tensor, k65: torch.Tensor, v: torch.Tensor,
                 clamp: bool = True) -> torch.Tensor:
     """K6 on q65 [B, Lq, 65], k65 [B, Lk, 65] and v [B, Lk, 64], all bf16:
-    o [B, Lq, 64] bf16. `clamp` is variant D, not `clamp` variant E. The
-    130-byte rows of q65 and k65 are read as they are (no padded copy)."""
+    o [B, Lq, 64] bf16. `clamp` is variant D, not `clamp` variant E. On the
+    card `repack65` splits q65 and k65 into a workspace, then the kernel
+    runs on it."""
     check_bf16_c64("nomax65_fwd", q65, v)
     b, lq, c65 = q65.shape
     lk = k65.shape[1]
@@ -131,9 +187,11 @@ def nomax65_fwd(q65: torch.Tensor, k65: torch.Tensor, v: torch.Tensor,
     for name, t in (("q65", q65), ("k65", k65)):
         fk._check_layout(name, t, q65.device, align=2)
     fk._check_layout("v", v, q65.device)
+    q64, qa = repack65(q65)
+    k64, kb = repack65(k65)
     o = torch.empty(b, lq, C, dtype=v.dtype, device=v.device)
     nomax65_fwd.launches += fk._launch_batched(
-        "flash_fwd_nomax65", (q65, k65, v, o), lq, lk, int(clamp))
+        "flash_fwd_nomax65", (q64, qa, k64, kb, v, o), lq, lk, int(clamp))
     return o
 
 

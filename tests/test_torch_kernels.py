@@ -9,9 +9,10 @@ On the CPU a tensor goes to the kernel's plain version; on the card each
 wrapper launches its CUDA kernel (K1 `flash_fwd_nomax`, K2
 `flash_fwd_nomax_lse`, K3 `flash_fwd_online`, K4 `flash_bwd` with and
 without its clamp, and the A/B tools' K5 `softmax_ab.old_flash_fwd`, K6
-`softmax_ab.nomax65_fwd` and K7 `bf16_softmax_experiment.flash_fwd_bf16`),
-counted in `<wrapper>.launches`. K1-K4 and K7 have edge cases where their
-TMA boxes meet ragged lengths.
+`softmax_ab.nomax65_fwd` with its repack kernel `softmax_ab.repack65`,
+and K7 `bf16_softmax_experiment.flash_fwd_bf16`), counted in
+`<wrapper>.launches`. K1-K7 have edge cases where their TMA boxes meet
+ragged lengths.
 Kernel vs plain version, both bounds scaled to the plain output (as
 chip_smoke.py holds them): max|diff| <= TOL max|plain| and rms(diff) <=
 RMS_TOL rms(plain); f32 2e-5 / 1e-5 (summation order, the hardware exp2,
@@ -28,6 +29,7 @@ import ctypes
 import re
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
@@ -156,6 +158,28 @@ def _tool_inputs(device, lq=150, lk=90, seed=0):
     return [t.to(device) for t in (q, k, v, bias, q65, k65)]
 
 
+def _k6_inputs(b, lq, lk, seed=0, nan_row=True):
+    """q65, k65 [B, L, 65] and v [B, Lk, 64], bf16 on the CPU, drawn with
+    numpy, with a general 65th channel: random, 0 on every 5th query row
+    and negated on every 3rd. qa = 40 on batch row 0's first 4 queries
+    meets kb = 2 on every 9th key: scores near 80, past the clamp at 60
+    (|qa kb| stays below ~100 elsewhere, so that exp2 stays finite without
+    the clamp). `nan_row`: a NaN in key 3 of batch row 1."""
+    rng = np.random.default_rng(seed)
+    q65, k65 = (rng.standard_normal((b, n, 65)).astype(np.float32)
+                for n in (lq, lk))
+    q65[..., :64] *= 0.35
+    q65[:, ::5, 64] = 0.0
+    q65[:, 1::3, 64] *= -1.0
+    q65[0, :4, 64] = 40.0
+    k65[..., 64] *= 0.5
+    k65[0, ::9, 64] = 2.0
+    if nan_row:
+        k65[1, 3] = np.nan
+    v = rng.standard_normal((b, lk, 64)).astype(np.float32)
+    return tuple(torch.from_numpy(a).bfloat16() for a in (q65, k65, v))
+
+
 def _new_wrapper_calls(q, k, v, bias, q65, k65):
     """(counted wrapper, call, plain version's call) of the wrappers this
     slice added."""
@@ -169,13 +193,15 @@ def _new_wrapper_calls(q, k, v, bias, q65, k65):
          lambda: tsab.nomax65_fwd_reference(q65, k65, v, False)),
         (tbf.flash_fwd_bf16, lambda: tbf.flash_fwd_bf16(q, k, v, bias),
          lambda: tbf.flash_fwd_bf16_reference(q, k, v, bias)),
+        (tsab.repack65, lambda: tsab.repack65(k65),
+         lambda: tsab.repack65_reference(k65)),
     ]
 
 
-@pytest.mark.parametrize("which", range(4))
+@pytest.mark.parametrize("which", range(5))
 def test_new_wrappers_on_cpu_run_plain_versions(which):
-    """K3, K5, K6 and K7 send CPU tensors to their plain versions, with no
-    launch counted; so does K4 with clamp=False."""
+    """K3, K5, K6, K7 and K6's repack send CPU tensors to their plain
+    versions, with no launch counted; so does K4 with clamp=False."""
     wrapper, call, plain = _new_wrapper_calls(*_tool_inputs("cpu"))[which]
     before = wrapper.launches
     got, want = call(), plain()
@@ -194,7 +220,7 @@ def test_new_wrappers_on_cpu_run_plain_versions(which):
         assert tk.flash_bwd.launches == count
 
 
-@pytest.mark.parametrize("which", range(4))
+@pytest.mark.parametrize("which", range(5))
 def test_new_wrappers_off_the_cpu_launch_or_raise(which, monkeypatch):
     """Off the CPU a wrapper launches its kernel or raises: a tensor on
     another device is refused, and a tensor taken for the card goes to the
@@ -228,6 +254,9 @@ def test_tool_wrappers_take_bf16_at_c64_only():
         tsab.nomax65_fwd(q65.float(), k65.float(), v.float())
     with pytest.raises(ValueError, match="needs q65"):
         tsab.nomax65_fwd(q65[..., :64], k65[..., :64], v)
+    for bad in (q65.float(), q65[..., :64]):
+        with pytest.raises(ValueError, match="repack65 takes"):
+            tsab.repack65(bad)
 
 
 def test_bwd_ab_variants_apply_to_the_kernel_source():
@@ -266,14 +295,16 @@ def test_fwd_ab_variants_apply_to_the_kernel_source():
     the committed source away: the mma.sync body at every C or at C 256,
     thread 0 as the producer, ping-pong at C 64 and none at C 128, a ring
     of two or three stages, 64 or 256 keys a step, three consumer
-    warpgroups, 128 keys a step at C 128."""
+    warpgroups, 128 keys a step at C 128, K6 without ping-pong, K6's E
+    without its cap at 128."""
     from maskunet_tpu_torch.tools import fwd_ab
     src = tk.SOURCES["flash_fwd_nomax"].read_text()
     texts = fwd_ab.variants(src)
     assert set(texts) == {"source", "mma_sync", "c256_mma_sync",
                           "producer0", "pingpong", "c128_no_pingpong",
                           "stages2", "stages3", "keys64", "keys256",
-                          "wg3", "c128_keys128"}
+                          "wg3", "c128_keys128", "k6_no_pingpong",
+                          "k6e_uncapped"}
     assert texts["source"] == src
     assert len(set(texts.values())) == len(texts)
     for name, line in (("mma_sync", "{ return false; }"),
@@ -287,7 +318,9 @@ def test_fwd_ab_variants_apply_to_the_kernel_source():
                        ("keys256", "kKeys64 = 256;"),
                        ("keys256", "kStages64 = 2;"),
                        ("wg3", "kConsumers = 3;"),
-                       ("c128_keys128", "kKeys128 = 128;")):
+                       ("c128_keys128", "kKeys128 = 128;"),
+                       ("k6_no_pingpong", "kPingPongK6 = false;"),
+                       ("k6e_uncapped", ": s);")):
         assert line in texts[name] and line not in src
     for name, old in (("mma_sync", fwd_ab._WGMMA_C),
                       ("c256_mma_sync", fwd_ab._WGMMA_C),
@@ -299,7 +332,9 @@ def test_fwd_ab_variants_apply_to_the_kernel_source():
                       ("keys64", fwd_ab._KEYS), ("keys256", fwd_ab._KEYS),
                       ("wg3", fwd_ab._WGS),
                       ("c128_keys128", fwd_ab._KEYS128),
-                      ("c128_keys128", fwd_ab._STAGES128)):
+                      ("c128_keys128", fwd_ab._STAGES128),
+                      ("k6_no_pingpong", fwd_ab._PINGPONG_K6),
+                      ("k6e_uncapped", fwd_ab._E_CAP)):
         assert old not in texts[name]
         with pytest.raises(ValueError, match="no longer holds"):
             fwd_ab.variants(src.replace(old, ""))
@@ -324,7 +359,7 @@ def test_online_ab_variants_apply_to_the_kernel_source():
     texts = fwd_ab.variants(src, fwd_ab.ONLINE_VARIANTS)
     assert set(texts) == {"source", "mma_sync", "producer0",
                           "c64_no_pingpong", "c128_no_pingpong", "stages3",
-                          "keys64"}
+                          "keys64", "k5_expf"}
     assert texts["source"] == src
     assert len(set(texts.values())) == len(texts)
     for name, line in (("mma_sync", "{ return false; }"),
@@ -332,10 +367,12 @@ def test_online_ab_variants_apply_to_the_kernel_source():
                        ("c64_no_pingpong", "kPingPong64 = false;"),
                        ("c128_no_pingpong", "kPingPong128 = false;"),
                        ("stages3", "kStages64 = 3;"),
-                       ("keys64", "kKeys64 = 64;")):
+                       ("keys64", "kKeys64 = 64;"),
+                       ("k5_expf", "kExpByFma = false;")):
         assert line in texts[name] and line not in src
     for old in (fwd_ab._WGMMA_C, fwd_ab._PRODUCER, fwd_ab._PINGPONG64_ON,
-                fwd_ab._PINGPONG128, fwd_ab._STAGES, fwd_ab._KEYS):
+                fwd_ab._PINGPONG128, fwd_ab._STAGES, fwd_ab._KEYS,
+                fwd_ab._EXP_BY_FMA):
         with pytest.raises(ValueError, match="no longer holds"):
             fwd_ab.variants(src.replace(old, ""), fwd_ab.ONLINE_VARIANTS)
 
@@ -355,7 +392,7 @@ def test_k5_runs_the_online_wgmma_body():
     """K5's entry runs the online wgmma body, as K3 and K7 do, at any key
     count above 0 (the mma.sync body is left only for a call with no
     key), and the body's natural exponential is the FMA form or __expf
-    by one switch."""
+    by one switch, which tools/fwd_ab.py's `k5_expf` flips."""
     src = tk.SOURCES["flash_fwd_online"].read_text()
     entry = src[src.index('extern "C" int flash_fwd_online_exp('):]
     entry = entry[:entry.index("\n}\n")]
@@ -369,6 +406,24 @@ def test_k5_runs_the_online_wgmma_body():
     assert 64 in tk.ONLINE_WGMMA_CHANNELS
     assert src.count("constexpr bool kExpByFma = true;") == 1
     assert "MODE == kNatural && kExpByFma" in src
+
+
+def test_k6_runs_the_forward_wgmma_body_after_its_repack():
+    """K6 is a mode of the no-max source's wgmma body fed by its repack
+    kernel, both entries of that library: no source of its own."""
+    src = tk.SOURCES["flash_fwd_nomax"].read_text()
+    assert set(tk.SOURCES) == {"flash_fwd_nomax", "flash_fwd_online",
+                               "flash_bwd"}
+    assert all(p.exists() for p in tk.SOURCES.values())
+    assert not (tk.SOURCES["flash_fwd_nomax"].parent
+                / "flash_fwd_nomax65.cu").exists()
+    for entry in ("flash_fwd_nomax65", "flash_repack65"):
+        assert tk._ENTRIES[entry][0] == "flash_fwd_nomax"
+        assert f'extern "C" int {entry}(' in src
+    entry = src[src.index('extern "C" int flash_fwd_nomax65('):]
+    entry = entry[:entry.index("\n}\n")]
+    assert "run_wgmma<64, false, kChannel>(" in entry
+    assert "run_wgmma<64, false, kChannelNoClamp>(" in entry
 
 
 def test_bf16_tool_block_k_is_the_kernel_key_step():
@@ -443,6 +498,10 @@ def _forward_wrapper_calls(b):
             for _ in range(2))
     bias = torch.empty(b, 1, 8, device="meta")
     q65 = torch.empty(b, 8, 65, dtype=torch.bfloat16, device="meta")
+    # K6's workspace as the wrapper allocates it (q64, qa, k64, kb), then v:
+    # meta tensors all start at 0, so these give the chunks' offsets
+    ws = (q, torch.empty(b, 8, device="meta"), q,
+          torch.empty(b, 8, device="meta"), k)
     return [
         (tk.flash_fwd_nomax, "flash_fwd_nomax",
          lambda: tk.flash_fwd_nomax(q, k, k, bias, 1.0), (q, k, k, bias), 5),
@@ -455,7 +514,7 @@ def _forward_wrapper_calls(b):
         (tsab.old_flash_fwd, "flash_fwd_online_exp",
          lambda: tsab.old_flash_fwd(q, k, k, bias), (q, k, k, bias), 6),
         (tsab.nomax65_fwd, "flash_fwd_nomax65",
-         lambda: tsab.nomax65_fwd(q65, q65, k), (q65, q65, k), 4),
+         lambda: tsab.nomax65_fwd(q65, q65, k), ws, 6),
         (tbf.flash_fwd_bf16, "flash_fwd_online_bf16",
          lambda: tbf.flash_fwd_bf16(q, k, k, bias), (q, k, k, bias), 6),
     ]
@@ -465,11 +524,19 @@ def _forward_wrapper_calls(b):
 def test_forward_wrappers_launch_in_batch_chunks(which, monkeypatch):
     """K1, K2, K3, K5, K6 and K7 launch 65,536 batch rows as two launches,
     of 65,528 and 8 rows (a grid's y dimension stops at 65,535), each with
-    the inputs' pointers at its first row; every launch is counted."""
+    the inputs' pointers at its first row; every launch is counted. K6
+    first repacks q65 and k65 whole, one launch each (a 1-D grid over
+    rows), then launches its kernel in chunks on the workspace."""
     calls = _recorded_launches(monkeypatch)
     wrapper, name, call, inputs, n_ptrs = _forward_wrapper_calls(65536)[which]
     before = wrapper.launches
+    repacks = tsab.repack65.launches
     call()
+    if name == "flash_fwd_nomax65":
+        assert [c[0] for c in calls[:2]] == ["flash_repack65"] * 2
+        assert [c[1][3:] for c in calls[:2]] == [(65536, 8)] * 2
+        assert tsab.repack65.launches == repacks + 2
+        calls = calls[2:]
     _chunk_check(calls, name, inputs, n_ptrs, 65536, 65528)
     assert [c[1][n_ptrs] for c in calls] == [65528, 8]
     assert wrapper.launches == before + 2
@@ -746,6 +813,44 @@ extern "C" int exp_check(void* by_h2exp, void* ours) {
 """
 
 
+# the no-max source's ex2 at and past 128, the source included whole
+_EX2_CHECK = r"""
+#include "@SOURCE@"
+
+__global__ void ex2_of(const float* x, float* y, int n) {
+  if (int(threadIdx.x) < n) y[threadIdx.x] = ex2(x[threadIdx.x]);
+}
+
+extern "C" int ex2_check(const float* x, float* y, int n) {
+  ex2_of<<<1, 32>>>(x, y, n);
+  return int(cudaDeviceSynchronize());
+}
+"""
+
+
+@pytest.mark.cuda
+def test_ex2_is_inf_from_128_on_card(cuda, tmp_path):
+    """K6's E clamps its exp2 argument at 128 (`kExp2Inf`), which leaves
+    exp2 as it is only if the kernels' ex2 gives +inf from 128 on, as
+    exp2 in f32 does."""
+    src = tmp_path / "ex2_check.cu"
+    src.write_text(_EX2_CHECK.replace(
+        "@SOURCE@", str(tk.SOURCES["flash_fwd_nomax"])))
+    lib = tmp_path / "ex2_check.so"
+    subprocess.run([tk._nvcc(), *tk.NVCC_FLAGS, "-o", str(lib), str(src)],
+                   check=True, capture_output=True)
+    x = torch.tensor([127.0, 127.99, 128.0, 128.5, 200.0, 1e30,
+                      float("inf"), float("nan")], device=cuda)
+    y = torch.empty_like(x)
+    assert ctypes.CDLL(str(lib)).ex2_check(
+        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+        ctypes.c_int(x.numel())) == 0
+    y = y.cpu()
+    assert bool(torch.isfinite(y[:2]).all())
+    assert bool((y[2:7] == float("inf")).all()) and bool(torch.isnan(y[7]))
+    assert bool(torch.isinf(torch.exp2(x[2:7].cpu())).all())
+
+
 @pytest.mark.cuda
 def test_bf16_exp_is_h2exp_but_for_subnormals_on_card(cuda, tmp_path):
     """K7's exponential (`exp_bf16x2`, h2exp's arithmetic with ex2's
@@ -847,3 +952,29 @@ def test_k5_at_ragged_shapes_on_card(cuda, edge):
     _agrees(o[1], v[1].float().mean(0).expand(lq, 64).bfloat16())
     assert bool((lse[1] == float(torch.tensor(tfa.NEG_INF))).all())
     assert torch.isnan(o[2]).all() and torch.isnan(lse[2]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lk", [129, 131])
+def test_k6_at_ragged_shapes_on_card(cuda, lk):
+    """K6 D and E (its repack, then the wgmma body's K6 mode) at Lq 37 and
+    Lk 129 / 131 (k65's rows off any 16-byte boundary; the keys past Lk in
+    the last tile zeroed whatever qa is) with `_k6_inputs`' general 65th
+    channel: against the plain version, NaN on the poisoned batch row, D
+    and E apart where scores pass 60; the repack exact."""
+    q65, k65, v = (t.to(cuda) for t in _k6_inputs(2, 37, lk, seed=lk))
+    outs = {}
+    for clamp in (True, False):
+        counts = (tsab.nomax65_fwd.launches, tsab.repack65.launches)
+        o = tsab.nomax65_fwd(q65, k65, v, clamp)
+        torch.cuda.synchronize()
+        assert (tsab.nomax65_fwd.launches, tsab.repack65.launches) == (
+            counts[0] + 1, counts[1] + 2)
+        _agrees(o, tsab.nomax65_fwd_reference(q65, k65, v, clamp))
+        assert torch.isnan(o[1]).all() and torch.isfinite(o[0]).all()
+        outs[clamp] = o
+    assert not torch.equal(outs[True][0, :4], outs[False][0, :4])
+    got, want = tsab.repack65(k65), tsab.repack65_reference(k65)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int16), want[0].view(torch.int16))
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))

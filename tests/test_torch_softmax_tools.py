@@ -31,6 +31,7 @@ from maskunet_tpu_torch.tools import bf16_softmax_experiment as tbf
 from maskunet_tpu_torch.tools import softmax_ab as tsab
 
 from test_torch_flash_bwd import _both, _close
+from test_torch_kernels import _k6_inputs
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -119,6 +120,47 @@ def test_nomax65_plain_matches_jax(jax_tools, interpret, masked_row, clamp):
     _close(got, want, "bfloat16")
     if masked_row:
         assert torch.equal(got[1], torch.zeros_like(got[1]))
+
+
+def test_repack65_plain_splits_off_the_65th_channel():
+    """K6's repack, plain: the first 64 channels bit for bit in a
+    contiguous tensor of 128-byte rows, the 65th as its exact f32 value
+    (NaN kept)."""
+    q65, k65, _ = _k6_inputs(2, 37, 131)
+    for x65 in (q65, k65):
+        x64, xa = tsab.repack65_reference(x65)
+        assert x64.is_contiguous() and x64.shape == (*x65.shape[:2], 64)
+        assert x64.dtype == torch.bfloat16 and xa.dtype == torch.float32
+        assert torch.equal(x64.view(torch.int16),
+                           x65[..., :64].contiguous().view(torch.int16))
+        np.testing.assert_array_equal(xa.numpy(),
+                                      x65[..., 64].float().numpy())
+        assert torch.equal(tsab.repack65(x65)[0].view(torch.int16),
+                           x64.view(torch.int16))
+
+
+@pytest.mark.parametrize("clamp", [True, False])
+def test_nomax65_split_form_matches_plain_and_jax(jax_tools, interpret,
+                                                  clamp):
+    """The kernel's split form of K6, q64 k64^T + qa kb^T after the
+    repack, against the 65-channel plain version and the JAX tool's
+    kernel (interpret mode), D and E, on a 65th channel that is random, 0
+    and negative, with scores past 60 and a NaN key row (bf16 bounds of
+    the module docstring; NaN where JAX has NaN)."""
+    q65, k65, v = _k6_inputs(2, 256, 512, seed=3)
+    split = tsab.nomax65_split_reference(*tsab.repack65_reference(q65),
+                                         *tsab.repack65_reference(k65), v,
+                                         clamp)
+    plain = tsab.nomax65_fwd_reference(q65, k65, v, clamp)
+    jq65, jk65, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                      for t in (q65, k65, v))
+    want = jax_tools[0].nomax65_fwd(jq65, jk65, jv, clamp=clamp)
+    assert split.dtype == torch.bfloat16 and split.shape == (2, 256, 64)
+    _close(split, want, "bfloat16")
+    _close(split, plain.float().numpy(), "bfloat16")
+    assert torch.isnan(split[1]).all() and torch.isfinite(split[0]).all()
+    s = (q65[0, :4].float() @ k65[0].float().T)
+    assert float(s.max()) > 60.0
 
 
 def test_nomax65_clamp_changes_large_scores():
