@@ -14,9 +14,10 @@ and their plain PyTorch versions.
 
 Their CUDA sources, `csrc/flash_fwd_nomax.cu` (K1 and K2, and the A/B
 tools' K6 with its repack kernel), `csrc/flash_fwd_online.cu` (K3, and
-the tools' K5 and K7) and `csrc/flash_bwd.cu` (K4), are compiled for sm_90a with nvcc at the first launch of any of them, all
-at once, into `maskunet_tpu_torch/_build/` (shared libraries with plain C
-entry points, loaded with ctypes), and launch on the current CUDA stream.
+the tools' K5 and K7) and `csrc/flash_bwd.cu` (K4), are compiled for
+sm_90a with nvcc at the first launch of any of them, all at once, into
+`maskunet_tpu_torch/_build/` (shared libraries with plain C entry points,
+loaded with ctypes), and launch on the current CUDA stream.
 The wrappers of K5-K7 sit in `maskunet_tpu_torch/tools/`.
 
 A tensor on the CPU goes to the wrapper's plain version (`*_reference`,

@@ -96,16 +96,16 @@ def old_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 old_flash_fwd.launches = 0
 
 
-def nomax65_fwd_reference(q65: torch.Tensor, k65: torch.Tensor,
-                          v: torch.Tensor, clamp: bool = True
-                          ) -> torch.Tensor:
-    """Plain version of K6: s = q65 k65^T in f32, p = exp2(min(s, 60))
-    (`clamp`, NaN kept) or exp2(s), p rounded to v's dtype for P.V while l
-    sums the f32 p; o = P.V / max(l, 1e-30) in v's dtype."""
-    out = torch.empty(*q65.shape[:2], v.shape[-1], dtype=v.dtype,
+def _nomax65_from_scores(scores, lq: int, v: torch.Tensor, clamp: bool
+                         ) -> torch.Tensor:
+    """K6's softmax and P.V, batch row by batch row: `scores(i)` gives row
+    i's f32 s [Lq, Lk]; p = exp2(min(s, 60)) (`clamp`, NaN kept) or
+    exp2(s), p rounded to v's dtype for P.V while l sums the f32 p; o =
+    P.V / max(l, 1e-30) in v's dtype, [B, Lq, 64]."""
+    out = torch.empty(v.shape[0], lq, v.shape[-1], dtype=v.dtype,
                       device=v.device)
-    for i in range(q65.shape[0]):
-        s = torch.matmul(q65[i].float(), k65[i].float().transpose(0, 1))
+    for i in range(v.shape[0]):
+        s = scores(i)
         if clamp:
             s = torch.clamp(s, max=fk._NOMAX_CLAMP)
         p = torch.exp2(s)
@@ -113,6 +113,16 @@ def nomax65_fwd_reference(q65: torch.Tensor, k65: torch.Tensor,
         acc = torch.matmul(p.to(v.dtype).float(), v[i].float())
         out[i] = (acc / l).to(v.dtype)
     return out
+
+
+def nomax65_fwd_reference(q65: torch.Tensor, k65: torch.Tensor,
+                          v: torch.Tensor, clamp: bool = True
+                          ) -> torch.Tensor:
+    """Plain version of K6: s = q65 k65^T in f32, then as
+    `_nomax65_from_scores`."""
+    return _nomax65_from_scores(
+        lambda i: torch.matmul(q65[i].float(), k65[i].float().transpose(0, 1)),
+        q65.shape[1], v, clamp)
 
 
 def repack65_reference(x65: torch.Tensor
@@ -152,19 +162,10 @@ def nomax65_split_reference(q64: torch.Tensor, qa: torch.Tensor,
                             ) -> torch.Tensor:
     """Plain version of K6's kernel on the repacked inputs: s = q64 k64^T
     + qa kb^T in f32 (qa kb exact: a product of two bf16 values), then as
-    `nomax65_fwd_reference`."""
-    out = torch.empty(*q64.shape[:2], v.shape[-1], dtype=v.dtype,
-                      device=v.device)
-    for i in range(q64.shape[0]):
-        s = torch.matmul(q64[i].float(), k64[i].float().transpose(0, 1)) \
-            + qa[i][:, None] * kb[i][None, :]
-        if clamp:
-            s = torch.clamp(s, max=fk._NOMAX_CLAMP)
-        p = torch.exp2(s)
-        l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-        acc = torch.matmul(p.to(v.dtype).float(), v[i].float())
-        out[i] = (acc / l).to(v.dtype)
-    return out
+    `_nomax65_from_scores`."""
+    return _nomax65_from_scores(
+        lambda i: torch.matmul(q64[i].float(), k64[i].float().transpose(0, 1))
+        + qa[i][:, None] * kb[i][None, :], q64.shape[1], v, clamp)
 
 
 def nomax65_fwd(q65: torch.Tensor, k65: torch.Tensor, v: torch.Tensor,

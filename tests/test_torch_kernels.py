@@ -905,8 +905,8 @@ def test_backward_without_clamp_matches_plain_version_on_card(cuda, c):
 
 @pytest.mark.cuda
 def test_tool_kernels_match_plain_versions_on_card(cuda):
-    """K5, K6 (D and E) and K7 at a ragged shape with a fully masked
-    batch row (the mean of V for K5 and K7, 0 for K6)."""
+    """K5, K6 (D and E), K7 and K6's repack at a ragged shape with a fully
+    masked batch row (the mean of V for K5 and K7, 0 for K6)."""
     q, k, v, bias, q65, k65 = _tool_inputs(cuda, lq=150, lk=90)
     calls = _new_wrapper_calls(q, k, v, bias, q65, k65)[1:]
     calls.append((tsab.nomax65_fwd,
