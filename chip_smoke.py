@@ -73,6 +73,22 @@ final result):
     channel, scores past 60 (where D and E differ) and a NaN-poisoned key
     row; the three tool mains (the kernels' main path), then each
     kernel's time, plain time, bound and library time.
+12. loop: the training loop on the ADE model (c_out 150, 128x128, batch 8,
+    bf16) over the seeded synthetic dataset at that size (64 training and
+    16 validation examples): `train` for 2 epochs with validation every
+    epoch (2 batches) and a checkpoint every 4 steps, counters zeroed just
+    before: 16 steps launch K2 and K4 6 times each, each validation batch
+    K1 6 times, no other kernel; a finite history at steps 8 and 16; best
+    and latest checkpoints. Then the latest checkpoint restores the
+    returned state bit for bit, `train(resume=True, max_epochs=3)` runs
+    the third epoch only (step 16 to 24), and `build_model_runner` on the
+    workdir answers 8 requests through the batcher, equal to a direct
+    folded forward of the final state (the same logits, bit for bit).
+    Prints the loop's img/s and the seconds its saves held it.
+13. loop_time: the host's gaps between train steps (median, mean, max)
+    in the `loop` run, in the same 2 epochs without saves or validation,
+    with every batch already on the card (no prefetch thread), and for
+    the bare step on one batch: what each layer of the loop costs.
 
 It imports torch, numpy and the port, nothing of JAX.
 """
@@ -83,8 +99,11 @@ import dataclasses
 import functools
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -94,6 +113,7 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 
 from maskunet_tpu_torch import serve
+from maskunet_tpu_torch.core import checkpoint as ckpt_lib
 from maskunet_tpu_torch.models import maskattn_unet as mu
 from maskunet_tpu_torch.ops import flash_attention as fa
 from maskunet_tpu_torch.ops import flash_kernels as fk
@@ -1017,6 +1037,257 @@ def phase_train_time(card: str, train: dict) -> dict:
     return totals
 
 
+def states_equal(a, b) -> bool:
+    """Params, BN statistics, AdamW moments and count, masks and step, bit
+    for bit."""
+    same = a.step == b.step and all(
+        torch.equal(ma, mb) for ma, mb in zip(a.masks, b.masks))
+    for k, p in a.params.items():
+        q = b.params[k]
+        sa, sb = a.optimizer.state[p], b.optimizer.state[q]
+        same &= torch.equal(p.detach(), q.detach()) \
+            and float(sa["step"]) == float(sb["step"]) \
+            and torch.equal(sa["exp_avg"], sb["exp_avg"]) \
+            and torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])
+    return same and all(torch.equal(v, b.model_state[k])
+                        for k, v in a.model_state.items())
+
+
+def loop_recipe():
+    """The ADE model over the seeded synthetic dataset at its size."""
+    return dataclasses.replace(recipes.get("ade_semantic"),
+                               dataset="synthetic", num_classes=NUM_CLASSES)
+
+
+def timed_train(*args, **kw):
+    """`train_loop.train`, and the host's gaps between the returns of
+    successive train steps (ms): what a step costs the loop, waits on the
+    card, the prefetcher's and the save thread's share of the interpreter
+    and the epoch-end work included."""
+    make, stamps = train_loop.step_lib.make_train_step, []
+
+    def stamped(*a, **k):
+        step = make(*a, **k)
+
+        def run(ts, batch):
+            out = step(ts, batch)
+            stamps.append(time.perf_counter())
+            return out
+        return run
+
+    train_loop.step_lib.make_train_step = stamped
+    try:
+        result = train_loop.train(*args, **kw)
+    finally:
+        train_loop.step_lib.make_train_step = make
+    return result, [float(g) for g in np.diff(stamps) * 1e3]
+
+
+def phase_loop(card: str) -> dict:
+    """The training loop from the seeded dataset through checkpoints, a
+    resume and serving the trained workdir (phase 12)."""
+    recipe = loop_recipe()
+    kw = dict(eval_every=1, eval_max_batches=2, ckpt_every=4,
+              compute_dtype="bfloat16", verbose=False, device="cuda")
+    want = dict.fromkeys(counted_wrappers(), 0)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        zero_launches()                          # the main path's run
+        t0 = time.monotonic()
+        first, gaps = timed_train(recipe, None, workdir, max_epochs=2, **kw)
+        torch.cuda.synchronize()
+        first_s = time.monotonic() - t0
+        launches = kernel_launches()
+        steps = [r["step"] for r in first.history]
+        finite = all(np.isfinite([r["loss"], r["miou"], r["val_loss"],
+                                  r["val_miou"]]).all()
+                     for r in first.history)
+        files = sorted(n for n in os.listdir(workdir)
+                       if n.endswith(".msgpack"))
+        check(launches == {**want, "K2": 6 * 16, "K4": 6 * 16,
+                           "K1": 6 * 4},
+              f"loop: 16 steps launch K2 and K4 6 times each, 4 validation "
+              f"batches K1 6 times each, nothing else: {launches}")
+        check(steps == [8, 16] and finite and first.stop_reason ==
+              "completed", f"loop: finite history at steps 8, 16: "
+              f"{first.history}")
+        check(files == ["checkpoint_ade_best.msgpack",
+                        "checkpoint_ade_latest.msgpack"],
+              f"loop: best and latest checkpoints: {files}")
+
+        # what one save costs its thread: snapshot, host copy, encoding
+        # and the write, alone (the loop's saves overlap its steps)
+        timed = os.path.join(workdir, "timed.msgpack")
+        t0 = time.monotonic()
+        ckpt_lib.save(timed, first.state)
+        one_save_s = time.monotonic() - t0
+        checkpoint_bytes = os.path.getsize(timed)
+        os.remove(timed)
+
+        cfg = train_loop.model_config(recipe, NUM_CLASSES,
+                                      compute_dtype="bfloat16")
+        template = train_loop.setup_state(
+            recipe, cfg, train_loop.make_optimizer(recipe), device="cuda")
+        restored = ckpt_lib.restore(
+            os.path.join(workdir, "checkpoint_ade_latest.msgpack"), template)
+        restored_equal = states_equal(restored, first.state)
+        check(restored_equal, "loop: the latest checkpoint restores the "
+              "returned state bit for bit")
+        del template, restored
+
+        zero_launches()
+        t0 = time.monotonic()
+        second = train_loop.train(recipe, None, workdir, max_epochs=3,
+                                  resume=True, **kw)
+        torch.cuda.synchronize()
+        second_s = time.monotonic() - t0
+        resume_launches = kernel_launches()
+        check([r["step"] for r in second.history] == [24]
+              and second.state.step == 24
+              and resume_launches == {**want, "K2": 48, "K4": 48,
+                                      "K1": 12},
+              f"loop: resume runs steps 17-24 only: {second.history}, "
+              f"{resume_launches}")
+
+        # serving the workdir: the runner's answers against a direct folded
+        # forward of the final state (what 'latest' holds)
+        runner, img_size = serve.build_model_runner(
+            recipe, NUM_CLASSES, workdir, "latest", compute_dtype="bfloat16",
+            batch_size=BATCH, device="cuda")
+        _, infer, masks, scfg = serve.build_inference_fn(
+            recipe, NUM_CLASSES, workdir, "latest", compute_dtype="bfloat16",
+            batch_size=BATCH, device="cuda")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    st = second.state
+    with torch.no_grad():
+        direct = mu.cast_params_for_inference(
+            mu.fold_bn_for_inference(st.params, st.model_state, scfg))
+    same_params = direct.keys() == infer.keys() and all(
+        torch.equal(direct[k], infer[k]) for k in direct)
+    rng = np.random.default_rng(12)
+    images = [rng.integers(0, 256, (img_size, img_size, 3)).astype(np.uint8)
+              for _ in range(8)]
+    batcher = serve._Batcher(runner, BATCH, max_wait_ms=20.0)
+    zero_launches()
+    with ThreadPoolExecutor(4) as ex:
+        answers = list(ex.map(batcher.predict, images))
+    serve_launches = kernel_launches()
+    plans = mu.precompute_mask_plans(masks)
+
+    def logits(params, batch):
+        x = torch.from_numpy(batch).cuda().float() / 255.0
+        with torch.no_grad():
+            out, _ = mu.apply(params, None, x, cfg=scfg, masks=masks,
+                              folded=True, mask_plans=plans)
+        return out.semantic
+
+    served = logits(infer, np.stack(images))
+    want_logits = logits(direct, np.stack(images))
+    same_logits = torch.equal(served, want_logits)
+    answered = sum(
+        int(np.array_equal(ans, logits(direct, np.stack([img] * BATCH))[0]
+                           .argmax(-1).to(torch.uint8).cpu().numpy()))
+        for img, ans in zip(images, answers))
+    metrics = batcher.metrics()
+    check(same_params and same_logits and answered == 8
+          and bool(torch.isfinite(served.float()).all()),
+          f"loop: the workdir served equals a direct folded forward of the "
+          f"final state (params {same_params}, logits {same_logits}, "
+          f"answers {answered}/8)")
+    check(serve_launches["K1"] == 6 * metrics["batches"]
+          and sum(serve_launches.values()) == serve_launches["K1"],
+          f"loop: serving launches K1 6 times a forward: {serve_launches}")
+    emit(phase="loop", card=card, batch=BATCH, steps=steps,
+         launches=launches, resume_launches=resume_launches,
+         serve_launches=serve_launches, seconds_2_epochs=first_s,
+         seconds_resumed_epoch=second_s,
+         img_per_s=first.images_per_sec,
+         img_per_s_resumed=second.images_per_sec,
+         save_blocked_s=first.save_blocked_s,
+         save_blocked_s_resumed=second.save_blocked_s,
+         one_save_s=one_save_s, checkpoint_bytes=checkpoint_bytes,
+         history=first.history + second.history,
+         checkpoints=files, restored_equal=restored_equal,
+         served_params_equal=same_params, served_logits_equal=same_logits,
+         answers_equal_direct=answered, serve_batches=metrics["batches"])
+    return {"K1": launches["K1"], "K2": launches["K2"],
+            "K4": launches["K4"], "gaps": gaps, "img_per_s":
+            first.images_per_sec, "save_blocked_s": first.save_blocked_s}
+
+
+def phase_loop_time(card: str, loop: dict) -> None:
+    """Where the loop's time goes (phase 13): the gaps between train steps
+    in the `loop` run (saves, validation), in the same 2 epochs without
+    saves or validation, the same with every batch already on the card
+    (no prefetch thread), and the bare step on one batch."""
+    recipe = loop_recipe()
+    kw = dict(max_epochs=2, save_checkpoints=False, compute_dtype="bfloat16",
+              verbose=False, device="cuda")
+    rows = {"loop": (loop["gaps"], loop["img_per_s"])}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_loop_time_")
+    try:
+        res, gaps = timed_train(recipe, None, workdir, **kw)
+        rows["no_saves"] = (gaps, res.images_per_sec)
+        prefetcher = train_loop.pipeline.Prefetcher
+
+        class OnCard:
+            """Every batch of the epoch copied to the card up front."""
+
+            def __init__(self, iterator, device, depth=2):
+                self.items = [train_loop.pipeline.to_device(b, device)
+                              for b in iterator]
+
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *exc):
+                pass
+
+            def __iter__(self):
+                return iter(self.items)
+
+        train_loop.pipeline.Prefetcher = OnCard
+        try:
+            res, gaps = timed_train(recipe, None, workdir, **kw)
+        finally:
+            train_loop.pipeline.Prefetcher = prefetcher
+        rows["batches_on_card"] = (gaps, res.images_per_sec)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    cfg = train_loop.model_config(recipe, NUM_CLASSES,
+                                  compute_dtype="bfloat16")
+    ts = train_loop.setup_state(recipe, cfg,
+                                train_loop.make_optimizer(recipe),
+                                device="cuda")
+    step = train_step.make_train_step(
+        cfg, recipe.task_config, mask_plans=mu.precompute_mask_plans(ts.masks),
+        device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    batch = {"image": torch.rand(BATCH, IMG, IMG, 3, generator=gen,
+                                 device="cuda"),
+             "label": torch.randint(0, NUM_CLASSES, (BATCH, IMG, IMG),
+                                    generator=gen, device="cuda")}
+    for _ in range(3):
+        ts, _ = step(ts, batch)
+    torch.cuda.synchronize()
+    stamps = [time.perf_counter()]
+    for _ in range(15):
+        ts, _ = step(ts, batch)
+        stamps.append(time.perf_counter())
+    torch.cuda.synchronize()
+    rows["bare_step"] = ([float(g) for g in np.diff(stamps) * 1e3], None)
+    del ts
+    emit(phase="loop_time", card=card, batch=BATCH,
+         save_blocked_s=loop["save_blocked_s"],
+         **{name: {"median_step_ms": float(np.median(g)),
+                   "img_per_s_at_median": BATCH * 1e3 / float(np.median(g)),
+                   "mean_step_ms": float(np.mean(g)),
+                   "max_step_ms": float(np.max(g)), "meter_img_per_s": ips,
+                   "steps_ms": [round(x, 2) for x in g]}
+            for name, (g, ips) in rows.items()})
+
+
 def phase_safe(card: str) -> dict:
     """The serving and training paths with the safe softmax on: their
     checks, wall times and device profiles. Returns the launches of K3
@@ -1261,6 +1532,10 @@ def main() -> int:
     del serving
     train = phase_train(card)
     train_totals = phase_train_time(card, train)
+    train_launches = train["launches"]
+    del train
+    loop = phase_loop(card)
+    phase_loop_time(card, loop)
     kernel_online = phase_kernel_online()
     kernel_bwd_noclamp = phase_kernel_bwd_noclamp()
     safe = phase_safe(card)
@@ -1286,23 +1561,25 @@ def main() -> int:
         kernel_entry("flash_fwd_nomax", fwd_src,
                      "maskunet_tpu/ops/flash_attention.py:164",
                      totals["launches"], kernel["max_abs_err"], totals,
-                     bodies_bf16=fwd_bodies),
+                     bodies_bf16=fwd_bodies, launches_loop=loop["K1"]),
         kernel_entry("flash_fwd_nomax_lse", fwd_src,
                      "maskunet_tpu/ops/flash_attention.py:267",
-                     train["launches"]["K2"], kernel_lse["max_abs_err"],
-                     train_totals["K2"], bodies_bf16=fwd_bodies),
+                     train_launches["K2"], kernel_lse["max_abs_err"],
+                     train_totals["K2"], bodies_bf16=fwd_bodies,
+                     launches_loop=loop["K2"]),
         kernel_entry("flash_fwd_online", online_src,
                      "maskunet_tpu/ops/flash_attention.py:111",
                      safe["K3"], kernel_online["max_abs_err"], online_totals,
                      bodies_bf16=online_bodies),
         kernel_entry("flash_bwd", "maskunet_tpu_torch/csrc/flash_bwd.cu",
                      "maskunet_tpu/ops/flash_attention.py:323",
-                     train["launches"]["K4"] + safe["K4"],
+                     train_launches["K4"] + safe["K4"],
                      max(kernel_bwd["max_abs_err"],
                          kernel_bwd_noclamp["max_abs_err"]),
                      train_totals["K4"],
                      bodies_bf16={str(c): fk.flash_bwd_body(c, torch.bfloat16)
-                                  for c in fk.KERNEL_CHANNELS}),
+                                  for c in fk.KERNEL_CHANNELS},
+                     launches_loop=loop["K4"]),
         kernel_entry("old_flash_fwd", online_src, "tools/softmax_ab.py:29",
                      tools["K5"]["launches"], tools["K5"]["max_abs_err"],
                      tools["K5"], bodies_bf16={"64": online_bodies["64"]}),

@@ -4,20 +4,26 @@ A second package beside `maskunet_tpu` (the JAX reference), laid out the
 same way so each module's counterpart sits at the same path:
 
   core/     layers and initializers as plain functions on tensors, the
-            training state, the device choice
+            training state, the device choice, checkpoints in the JAX
+            package's msgpack format, early stop, metrics logs
+  data/     the seeded synthetic dataset, subsets, the example cache, the
+            batch iterator and the prefetcher to the card
   ops/      masked attention, the flash glue, the hand-written CUDA
             kernels it launches (csrc/, built with nvcc on first use),
             segmentation metrics
   models/   MaskAttn-UNet: init, apply (eval and train), BN folding, bf16
             cast
   losses/   cross-entropy
-  train/    the train and eval steps, the optimizer and state set-up
-  utils/    weights handed over from the JAX package's numpy trees
-  tasks/    the recipe table
+  train/    the train and eval steps, the optimizer and its lr
+            schedules, the training loop and evaluation
+  utils/    weights handed over from the JAX package's numpy trees, the
+            profiler window, the NaN guard and the stall watchdog
+  tasks/    the recipe table, the datasets a recipe trains on
   tools/    A/B of kernel variants on the card
   serve.py  the micro-batching HTTP server
 
 It imports torch and numpy, never jax or anything of `maskunet_tpu`.
-The serving path and the training step are ported; the training loop,
-checkpoints and datasets come next.
+The serving path, the training step and the training loop (with
+checkpoints both ways and the synthetic dataset) are ported; the real
+dataset readers, the loss blends and the evaluators come next.
 """

@@ -30,7 +30,7 @@ def _histogram(values: torch.Tensor, weight: torch.Tensor,
                n: int) -> torch.Tensor:
     """Counts of `values` in [0, n) where `weight`; others are dropped."""
     ok = weight & (values >= 0) & (values < n)
-    idx = torch.where(ok, values, n)
+    idx = torch.where(ok, values, n).long()   # int32 labels too
     counts = torch.zeros(n + 1, dtype=torch.int64, device=values.device)
     return counts.scatter_add_(0, idx, torch.ones_like(idx))[:n]
 

@@ -12,15 +12,17 @@ the folded bf16 model, and fanned back out.
         http://localhost:8799/predict > mask.png
     curl -s http://localhost:8799/healthz
 
-The model starts from a fresh init seeded with the recipe's seed (as the
-JAX server does without a checkpoint). Loading a JAX checkpoint, the
-dataset-derived class count, exported artifacts, int8 and multi-card
+The model is `{workdir}/{checkpoint_name}_{tag}.msgpack` where there is
+one, written by the JAX package or by the port (the same format), and a
+fresh init seeded with the recipe's seed otherwise, as the JAX server does.
+The dataset-derived class count, exported artifacts, int8 and multi-card
 serving come in later slices.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import queue
@@ -31,9 +33,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from maskunet_tpu_torch.core import checkpoint as ckpt_lib
 from maskunet_tpu_torch.core.device import exact_f32, resolve_device
 from maskunet_tpu_torch.models import maskattn_unet as mu
 from maskunet_tpu_torch.tasks import recipes as recipes_lib
+from maskunet_tpu_torch.train import loop as loop_lib
 
 
 class _Batcher:
@@ -217,8 +221,10 @@ def build_inference_fn(recipe, num_classes: int, workdir: str | None = None,
                        device: str | torch.device = "cuda"):
     """The folded serving forward and its operands: returns
     ``(forward, infer_params, masks, cfg)`` with ``forward(x_uint8)`` the
-    class-map prediction. Masks (row 0 of the recipe's seeded masks,
-    broadcast over the batch, so an image scores the same in every slot)
+    class-map prediction. The weights and masks are the checkpoint's
+    `{checkpoint_name}_{tag}.msgpack` in `workdir` where there is one (the
+    JAX package's or the port's), else the recipe's seeded init. Masks (row
+    0 broadcast over the batch, so an image scores the same in every slot)
     and their compaction plans are baked in as one pair."""
     if isinstance(recipe, str):
         recipe = recipes_lib.get(recipe)
@@ -226,19 +232,19 @@ def build_inference_fn(recipe, num_classes: int, workdir: str | None = None,
     exact_f32()
     cfg = model_config(recipe, num_classes, attn_impl=attn_impl,
                        compute_dtype=compute_dtype)
+    ts = loop_lib.setup_state(recipe, cfg, loop_lib.make_optimizer(recipe),
+                              device=dev)
     if workdir is not None:
         ckpt = os.path.join(workdir, f"{recipe.checkpoint_name}_{tag}.msgpack")
         if os.path.exists(ckpt):
-            raise NotImplementedError(
-                f"{ckpt}: loading a JAX checkpoint comes with the checkpoint "
-                "slice")
-    gen = torch.Generator().manual_seed(recipe.seed)
-    params, state = mu.init(gen, cfg)
-    masks = mu.make_attention_masks(gen, recipe.batch_size, cfg.img_size)
+            ts = ckpt_lib.restore_inference(ckpt, ts)
+    # serving masks: row 0 of the state's masks broadcast over the batch,
+    # so an image scores the same in every slot and at any batch size
     batch = batch_size or recipe.batch_size
-    masks = tuple(m[:1].expand(batch, -1).contiguous().to(dev)
-                  for m in masks)
-    infer_params = mu.fold_bn_for_inference(params, state, cfg)
+    masks = tuple(m[:1].expand(batch, -1).contiguous() for m in ts.masks)
+    with torch.no_grad():
+        infer_params = mu.fold_bn_for_inference(ts.params, ts.model_state,
+                                                cfg)
     if compute_dtype == "bfloat16":
         infer_params = mu.cast_params_for_inference(infer_params)
     infer_params = {k: v.to(dev) for k, v in infer_params.items()}
@@ -368,6 +374,14 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     recipe = recipes_lib.get(args.recipe)
+    # reference-imported checkpoints must serve with the attention layout
+    # their weights encode (the import records it)
+    meta = ckpt_lib.read_import_meta(args.workdir, recipe.checkpoint_name)
+    layout = (meta or {}).get("attn_output_layout", "transpose")
+    if layout != recipe.attn_output_layout:
+        recipe = dataclasses.replace(recipe, attn_output_layout=layout)
+        print(f"attention-output layout: {layout} (from import sidecar)",
+              flush=True)
     batch = args.batch_size or recipe.batch_size
     runner, img_size = build_model_runner(
         recipe, args.num_classes, args.workdir, args.tag,

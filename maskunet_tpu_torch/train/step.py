@@ -15,6 +15,7 @@ The attention-mask policy mirrors the reference's run-long mask caching:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
@@ -133,12 +134,23 @@ def make_train_step(cfg: model.MaskAttnUNetConfig, task: TaskConfig,
             p.grad = grads[k]
         ts.optimizer.step()
         ts.optimizer.zero_grad(set_to_none=True)
+        if ts.scheduler is not None:
+            ts.scheduler.step()        # the lr of the next update
         ts.step += 1
         ts.model_state = mstate
         ts.masks = masks
         return ts, metrics
 
     return step
+
+
+@functools.lru_cache(maxsize=16)
+def cached_eval_step(cfg: model.MaskAttnUNetConfig, task: TaskConfig,
+                     device: str | torch.device = "cuda") -> Callable:
+    """One eval step per (cfg, task, device), shared by the training loop's
+    in-training validation and `loop.evaluate` (JAX memoises its jitted
+    step the same way; here it saves rebuilding the closure)."""
+    return make_eval_step(cfg, task, device=device)
 
 
 def make_eval_step(cfg: model.MaskAttnUNetConfig, task: TaskConfig, *,

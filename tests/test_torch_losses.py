@@ -123,5 +123,12 @@ def test_adamw_matches_optax(rng, recipe):
     for k in p0:
         np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]),
                                    atol=1e-6, rtol=0)
-    with pytest.raises(NotImplementedError, match="training-loop slice"):
+    # the schedules are accepted: each builds AdamW with a LambdaLR
+    # (tests/test_torch_loop.py holds their lr to optax's at every index)
+    for schedule in ("cosine", "warmup_cosine", "step"):
+        opt = tloop.make_optimizer(r, lr_schedule=schedule, total_steps=9)
+        built = opt(list(tp.values()))
+        assert isinstance(opt.scheduler(built),
+                          torch.optim.lr_scheduler.LambdaLR)
+    with pytest.raises(ValueError, match="requires total_steps"):
         tloop.make_optimizer(r, lr_schedule="cosine")

@@ -199,16 +199,58 @@ def test_device_defaults_to_cuda_and_raises_without():
 
 
 def test_fresh_runner_on_cpu_and_jax_checkpoint_refused(tmp_path):
+    """Without a checkpoint the runner serves the recipe's seeded init; a
+    JAX checkpoint in the workdir (which the port once refused) is served:
+    the port's folded logits equal the JAX server's on that workdir within
+    f32 noise, and its masks are the checkpoint's row 0 over the batch."""
+    rec = dataclasses.replace(trecipes.get("synthetic_semantic"),
+                              img_size=16, batch_size=2)
     runner, img = tserve.build_model_runner(
-        dataclasses.replace(trecipes.get("synthetic_semantic"), img_size=16),
-        5, str(tmp_path), batch_size=2, compute_dtype="float32",
+        rec, 5, str(tmp_path), batch_size=2, compute_dtype="float32",
         device="cpu")
     out = runner(np.zeros((2, img, img, 3), np.uint8))
     assert out.shape == (2, 16, 16) and out.dtype == torch.uint8
-    (tmp_path / "checkpoint_synth_best.msgpack").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="checkpoint slice"):
-        tserve.build_model_runner("synthetic_semantic", 8, str(tmp_path),
-                                  device="cpu")
+
+    from maskunet_tpu.core import checkpoint as jckpt
+    from maskunet_tpu.train import loop as jloop
+    jrec = dataclasses.replace(jrecipes.get("synthetic_semantic"),
+                               img_size=16, batch_size=2)
+    jcfg = jloop.model_config(jrec, 5, attn_impl="dense")
+    jts = jloop.setup_state(jrec, jcfg, jloop.make_optimizer(jrec))
+    # BN statistics away from init, so the folding reads them
+    jts = jts.replace(model_state=jax.tree.map(
+        lambda v: v + 0.25 * jnp.abs(jnp.sin(jnp.arange(v.size) + 1.0))
+        .reshape(v.shape), jts.model_state), step=jnp.asarray(7, jnp.int32))
+    manager = jckpt.CheckpointManager(str(tmp_path), jrec.checkpoint_name)
+    manager.save_best(jts)
+    manager.wait()
+    try:
+        _, jinfer, jmasks, _ = jserve.build_inference_fn(
+            jrec, 5, str(tmp_path), "best", compute_dtype="float32",
+            attn_impl="dense")
+        forward, tinfer, tmasks, tcfg = tserve.build_inference_fn(
+            rec, 5, str(tmp_path), "best", compute_dtype="float32",
+            device="cpu")
+    finally:
+        os.remove(tmp_path / f"{jrec.checkpoint_name}_best.msgpack")
+    for got, want, saved in zip(tmasks, jmasks, jts.masks):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(got.numpy()[1], np.asarray(saved)[0])
+    images = np.random.default_rng(3).integers(
+        0, 256, (2, 16, 16, 3)).astype(np.uint8)
+    x = jnp.asarray(images, jnp.float32) / 255.0
+    want = np.asarray(jax.jit(lambda p: jmu.apply(
+        p, None, x, cfg=jcfg, masks=jmasks, train=False,
+        folded=True)[0].semantic)(jinfer))
+    with torch.no_grad():
+        got, _ = tmu.apply(tinfer, None, torch.from_numpy(images).float()
+                           / 255.0, cfg=tcfg, masks=tmasks, folded=True)
+    np.testing.assert_allclose(got.semantic.numpy(), want, atol=1e-4,
+                               rtol=1e-4)
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    decided = (top2[..., 1] - top2[..., 0]) > 1e-4
+    np.testing.assert_array_equal(forward(images).numpy()[decided],
+                                  want.argmax(-1)[decided])
 
 
 def test_port_imports_no_jax():
@@ -221,7 +263,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'optax', 'maskunet_tpu')]\n"
+        "       ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'cv2',\n"
+        "        'maskunet_tpu')]\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules\n"
         "           if n.startswith('maskunet_tpu_torch')]))\n")
@@ -229,4 +272,4 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 27
+    assert int(proc.stdout.strip()) >= 39
