@@ -89,6 +89,26 @@ final result):
     in the `loop` run, in the same 2 epochs without saves or validation,
     with every batch already on the card (no prefetch thread), and for
     the bare step on one batch: what each layer of the loop costs.
+14. panoptic_loop: the ADE panoptic recipe (CE 0.9 + triplet 0.1 on the
+    150 logits) over the synthetic dataset with instance ids, run as in
+    `loop`: 16 steps launch K2 and K4 6 times each, each validation batch
+    of both passes (the loss pass and the evaluator's) K1 6 times, no
+    other kernel; val_pq and val_ap each epoch, finite. Then one step on
+    injected triplets (its loss equals 0.9 CE + 0.1 triplet within 1e-6
+    relative, the triplet finite and positive and, within 1e-4 relative,
+    equal to `triplet_from_indices` on the logits of a forward of its
+    own with the same dropout draws), the f32 gradients with those
+    triplets through the kernels against the plain path (cosine >= 0.99
+    per tensor), and 10 steps that lower the loss. Prints the
+    evaluator's seconds (device eval and host decode) and the loop's img/s
+    and median step gap beside the semantic loop's.
+15. instance_loop: the Cityscapes instance recipe (19 classes, a 16-d
+    embedding head, the boundary head, CE ignoring 255 + triplet 0.5 on
+    the embeddings) over the synthetic dataset, run and checked as in 14,
+    with val_ap each epoch, and its step on injected triplets checked as
+    in 14 (the triplet on the embeddings); then the DBSCAN of the first
+    validation batch's embeddings on the card (ms per image) gives the
+    masks of its own run on the CPU, image by image.
 
 It imports torch, numpy and the port, nothing of JAX.
 """
@@ -114,10 +134,13 @@ from torch.autograd import DeviceType
 
 from maskunet_tpu_torch import serve
 from maskunet_tpu_torch.core import checkpoint as ckpt_lib
+from maskunet_tpu_torch.evaluation import clustering
+from maskunet_tpu_torch.losses import triplet as triplet_lib
 from maskunet_tpu_torch.models import maskattn_unet as mu
 from maskunet_tpu_torch.ops import flash_attention as fa
 from maskunet_tpu_torch.ops import flash_kernels as fk
-from maskunet_tpu_torch.tasks import recipes
+from maskunet_tpu_torch.tasks import evaluators, recipes
+from maskunet_tpu_torch.tasks.datasets import make_datasets
 from maskunet_tpu_torch.tools import bf16_softmax_experiment as bf16_tool
 from maskunet_tpu_torch.tools import softmax_ab
 from maskunet_tpu_torch.train import loop as train_loop
@@ -170,6 +193,11 @@ TRAIN_GRAD_COS = 0.99
 BF16_SIGNAL_COS = 0.9
 BF16_COS_MARGIN = 0.02
 TRAIN_STEPS = 10
+# the blended loss against its terms, both from the same f32 step
+BLEND_RTOL = 1e-6
+# the step's triplet term against `triplet_from_indices` of a forward of
+# its own on the same parameters and dropout draws (the same kernels)
+TRIPLET_RTOL = 1e-4
 
 failures: list[str] = []
 
@@ -767,9 +795,13 @@ def exact_zero_grad(name: str) -> bool:
     """Parameters whose gradient is zero in exact arithmetic, so that any
     implementation returns rounding noise there: each attention's key bias
     (softmax is shift-invariant), the affine of the BatchNorm that feeds
-    the Down/Up blocks' trailing BatchNorm (which normalises it away), and
-    the conv bias before the final BatchNorm."""
-    return (name.endswith(".key.bias") or name == "final_layer.0.bias"
+    the Down/Up blocks' trailing BatchNorm (which normalises it away), the
+    conv bias before a head's BatchNorm (the final layer's and the
+    embedding head's), and the boundary head's parameters (no term of the
+    loss reads that head: exactly zero)."""
+    return (name.endswith(".key.bias")
+            or name in ("final_layer.0.bias", "embedding_head.0.bias")
+            or name.startswith("boundary_head.")
             or (name.startswith("downsample") and ".2.conv_block.4." in name)
             or (name.startswith("upsample") and ".1.conv_block.4." in name))
 
@@ -790,6 +822,32 @@ def kernel_launches() -> dict:
 def zero_launches() -> None:
     for fn in counted_wrappers().values():
         fn.launches = 0
+
+
+def step_grads(model_cfg, task, ts, batch, plans, gen_state, plain: bool,
+               triplets=None) -> tuple[dict, float]:
+    """One step's gradients (f64, flattened, the exact-zero tensors left
+    out) and loss, through the kernels or (`plain`) their plain versions,
+    from the generator state `gen_state` (the same dropout draws)."""
+    ts.generator.set_state(gen_state)
+    fn = train_step.make_grads_and_metrics(model_cfg, task)
+    kernels = (fk.flash_fwd_nomax_lse, fk.flash_fwd_online, fk.flash_bwd)
+    if plain:
+        fk.flash_fwd_nomax_lse = functools.partial(
+            fk.flash_fwd_nomax_reference, with_lse=True)
+        fk.flash_fwd_online = fk.flash_fwd_online_reference
+        fk.flash_bwd = fk.flash_bwd_reference
+    try:
+        g, m, _ = fn(ts.params, ts.model_state, batch, ts.masks, plans,
+                     ts.generator, triplets)
+    finally:
+        fk.flash_fwd_nomax_lse, fk.flash_fwd_online, fk.flash_bwd = kernels
+    return ({k: v.double().flatten() for k, v in g.items()
+             if not exact_zero_grad(k)}, float(m["loss"]))
+
+
+def cos(a, b) -> float:
+    return float(a @ b / (a.norm() * b.norm()).clamp(min=1e-300))
 
 
 def phase_train(card: str, safe: bool = False) -> dict:
@@ -857,26 +915,8 @@ def phase_train(card: str, safe: bool = False) -> dict:
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
 
     def grads(model_cfg, plain: bool):
-        ts.generator.set_state(gen_state)
-        fn = train_step.make_grads_and_metrics(model_cfg, task)
-        kernels = (fk.flash_fwd_nomax_lse, fk.flash_fwd_online,
-                   fk.flash_bwd)
-        if plain:
-            fk.flash_fwd_nomax_lse = functools.partial(
-                fk.flash_fwd_nomax_reference, with_lse=True)
-            fk.flash_fwd_online = fk.flash_fwd_online_reference
-            fk.flash_bwd = fk.flash_bwd_reference
-        try:
-            g, m, _ = fn(ts.params, ts.model_state, batch, ts.masks, plans,
-                         ts.generator)
-        finally:
-            fk.flash_fwd_nomax_lse, fk.flash_fwd_online, fk.flash_bwd = \
-                kernels
-        return ({k: v.double().flatten() for k, v in g.items()
-                 if not exact_zero_grad(k)}, float(m["loss"]))
-
-    def cos(a, b):
-        return float(a @ b / (a.norm() * b.norm()).clamp(min=1e-300))
+        return step_grads(model_cfg, task, ts, batch, plans, gen_state,
+                          plain)
 
     (k32, loss_k32), (p32, loss_p32) = grads(cfg32, False), grads(cfg32, True)
     cos32 = {n: cos(k32[n], p32[n]) for n in p32}
@@ -1288,6 +1328,288 @@ def phase_loop_time(card: str, loop: dict) -> None:
             for name, (g, ips) in rows.items()})
 
 
+def panoptic_recipe():
+    """ADE panoptic (CE 0.9 + triplet 0.1 on the 150 logits) over the
+    seeded synthetic dataset with instance ids, at its size."""
+    return dataclasses.replace(recipes.get("ade_panoptic"),
+                               dataset="synthetic", num_classes=NUM_CLASSES)
+
+
+def instance_recipe():
+    """Cityscapes instance (19 classes, a 16-d embedding head, the
+    boundary head, CE ignoring 255 + triplet 0.5 on the embeddings) over
+    the seeded synthetic dataset."""
+    return dataclasses.replace(recipes.get("city_instance"),
+                               dataset="synthetic")
+
+
+class EvaluatorClock:
+    """Seconds spent in the evaluators (`evaluate_panoptic`,
+    `evaluate_instances`) and, of those, inside `_iter_eval`: the eval
+    step on the card and the copies of its outputs to the host. The rest
+    is host decode (and the DBSCAN's calls) not hidden behind the card."""
+
+    def __enter__(self):
+        self.total = self.device = 0.0
+        self.saved = (evaluators._iter_eval, evaluators.evaluate_panoptic,
+                      evaluators.evaluate_instances)
+        iter_eval, panoptic_fn, instances_fn = self.saved
+
+        def timed_iter(*args, **kw):
+            items = iter_eval(*args, **kw)
+            while True:
+                t0 = time.perf_counter()
+                item = next(items, None)
+                self.device += time.perf_counter() - t0
+                if item is None:
+                    return
+                yield item
+
+        def timed(fn):
+            def run(*args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    self.total += time.perf_counter() - t0
+            return run
+
+        evaluators._iter_eval = timed_iter
+        evaluators.evaluate_panoptic = timed(panoptic_fn)
+        evaluators.evaluate_instances = timed(instances_fn)
+        return self
+
+    def __exit__(self, *exc):
+        (evaluators._iter_eval, evaluators.evaluate_panoptic,
+         evaluators.evaluate_instances) = self.saved
+
+
+def run_task_loop(card: str, phase: str, recipe, num_classes: int,
+                  loop: dict, task_keys: tuple) -> tuple:
+    """`train` for 2 epochs as phase `loop` runs it (validation every
+    epoch over 2 batches, a checkpoint every 4 steps), counters zeroed
+    just before: 16 steps launch K2 and K4 6 times each, each validation
+    batch of both passes (the loss and the evaluator) K1 6 times, nothing
+    else; a finite history with `task_keys`. Returns (result, line)."""
+    kw = dict(eval_every=1, eval_max_batches=2, ckpt_every=4,
+              compute_dtype="bfloat16", verbose=False, device="cuda")
+    want = dict.fromkeys(counted_wrappers(), 0)
+    workdir = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_")
+    try:
+        with EvaluatorClock() as clock:
+            zero_launches()                      # the main path's run
+            t0 = time.monotonic()
+            res, gaps = timed_train(recipe, None, workdir, max_epochs=2,
+                                    **kw)
+            torch.cuda.synchronize()
+            seconds = time.monotonic() - t0
+            launches = kernel_launches()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    keys = ("loss", "miou", "val_loss", "val_ce_loss", "val_triplet_loss",
+            "val_miou") + task_keys
+    finite = all(k in r and math.isfinite(r[k]) for r in res.history
+                 for k in keys)
+    check(launches == {**want, "K2": 6 * 16, "K4": 6 * 16, "K1": 6 * 8},
+          f"{phase}: 16 steps launch K2 and K4 6 times each, 2 validation "
+          f"batches of each pass K1 6 times each, nothing else: {launches}")
+    check([r["step"] for r in res.history] == [8, 16] and finite,
+          f"{phase}: a finite history at steps 8, 16 with {keys}: "
+          f"{res.history}")
+    line = {"phase": phase, "card": card, "batch": BATCH,
+            "classes": num_classes, "launches": launches,
+            "seconds_2_epochs": seconds, "img_per_s": res.images_per_sec,
+            "semantic_loop_img_per_s": loop["img_per_s"],
+            "median_step_gap_ms": float(np.median(gaps)),
+            "semantic_loop_median_step_gap_ms": float(np.median(
+                loop["gaps"])),
+            "save_blocked_s": res.save_blocked_s,
+            "evaluator_s": clock.total, "evaluator_device_eval_s":
+            clock.device, "evaluator_host_decode_s": clock.total
+            - clock.device, "history": res.history}
+    return res, line
+
+
+def first_batch(ds) -> dict:
+    """The dataset's first batch of 8 on the card, without `valid`."""
+    pipe = train_loop.pipeline
+    batches = pipe.BatchIterator(ds, BATCH, shuffle=False).epoch(0)
+    batch = pipe.to_device(next(batches), "cuda")
+    batches.close()
+    batch.pop("valid")
+    return batch
+
+
+def eval_batch_ms(recipe, ts, batch) -> dict:
+    """Where `_iter_eval`'s time goes on one batch (ms, best of 3): the
+    eval step (synchronised), then the copies of its argmax and its
+    probabilities to the host."""
+    cfg = train_loop.model_config(recipe, recipe.num_classes,
+                                  compute_dtype="bfloat16")
+    step = train_step.cached_eval_step(cfg, recipe.task_config,
+                                       torch.device("cuda"))
+    plans = mu.precompute_mask_plans(ts.masks)
+    best = dict.fromkeys(("eval_step_ms", "pred_copy_ms", "prob_copy_ms"),
+                         float("inf"))
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(ts, batch, plans)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out["pred"].cpu()
+        t2 = time.perf_counter()
+        out["prob"].cpu()
+        t3 = time.perf_counter()
+        for key, dt in zip(best, (t1 - t0, t2 - t1, t3 - t2)):
+            best[key] = min(best[key], dt * 1e3)
+    return best
+
+
+def injected_step(phase: str, recipe, num_classes: int) -> tuple:
+    """One step of `recipe` on the first training batch with injected
+    triplets, from a fresh state: the f32 gradients through the kernels
+    against the plain path's (cosine >= TRAIN_GRAD_COS per tensor), the
+    bf16 step's launches (K2 6, K4 6), its loss the blend of its terms,
+    and its triplet term equal to `triplet_from_indices` on the features
+    (logits or embeddings) of a forward of its own with the same dropout
+    draws. Returns (cfg, state after the step, batch, plans, fields)."""
+    task = recipe.task_config
+    cfg = train_loop.model_config(recipe, num_classes,
+                                  compute_dtype="bfloat16")
+    ts = train_loop.setup_state(recipe, cfg,
+                                train_loop.make_optimizer(recipe),
+                                device="cuda")
+    plans = mu.precompute_mask_plans(ts.masks)
+    batch = first_batch(make_datasets(recipe, None)[0])
+    triplets = triplet_lib.sample_triplets(
+        torch.Generator(device="cuda").manual_seed(5), batch["instance"],
+        num_samples=task.triplet_samples,
+        ignore_label=task.triplet_ignore_label)
+    gen_state = ts.generator.get_state()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    (k32, loss_k32), (p32, loss_p32) = (
+        step_grads(cfg32, task, ts, batch, plans, gen_state, plain, triplets)
+        for plain in (False, True))
+    cos32 = {n: cos(k32[n], p32[n]) for n in p32}
+    worst = min(cos32, key=cos32.get)
+    del k32, p32
+    check(cos32[worst] >= TRAIN_GRAD_COS,
+          f"{phase} f32 train gradients, kernels vs plain: {worst} "
+          f"{cos32[worst]}")
+
+    # the triplet term recomputed on the step's own features
+    ts.generator.set_state(gen_state)
+    out, _ = mu.apply(ts.params, ts.model_state, batch["image"], cfg=cfg,
+                      masks=ts.masks, train=True,
+                      dropout_generator=ts.generator, mask_plans=plans)
+    feats = (out.embeddings if task.triplet_features == "embeddings"
+             else out.semantic.float())
+    a_idx, p_idx, n_idx, weight = triplets
+    own_triplet = float(triplet_lib.triplet_from_indices(
+        feats.detach(), a_idx, p_idx, n_idx, weight))
+    del out, feats
+
+    ts.generator.set_state(gen_state)
+    step = train_step.make_train_step(cfg, task, mask_plans=plans,
+                                      device="cuda")
+    zero_launches()
+    ts, metrics = step(ts, batch, triplets)
+    torch.cuda.synchronize()
+    step_launches = kernel_launches()
+    check(step_launches == {**dict.fromkeys(counted_wrappers(), 0),
+                            "K2": 6, "K4": 6},
+          f"{phase} step launches K2 6, K4 6: {step_launches}")
+    m = {k: float(v) for k, v in metrics.items()}
+    blend = task.ce_weight * m["ce_loss"] + task.triplet_weight * \
+        m["triplet_loss"]
+    check(abs(m["loss"] - blend) <= BLEND_RTOL * abs(blend)
+          and math.isfinite(m["triplet_loss"]) and m["triplet_loss"] > 0,
+          f"{phase} step: loss = {task.ce_weight} CE + "
+          f"{task.triplet_weight} triplet, the triplet finite and "
+          f"positive: {m}")
+    triplet_rel = abs(m["triplet_loss"] - own_triplet) / abs(own_triplet)
+    check(triplet_rel <= TRIPLET_RTOL,
+          f"{phase} step: its triplet term {m['triplet_loss']} equals "
+          f"triplet_from_indices on its {task.triplet_features}, "
+          f"{own_triplet}")
+    fields = dict(step_launches=step_launches, step_metrics=m,
+                  blend_rel_diff=abs(m["loss"] - blend) / abs(blend),
+                  blend_rtol=BLEND_RTOL, triplet_recomputed=own_triplet,
+                  triplet_rel_diff=triplet_rel, triplet_rtol=TRIPLET_RTOL,
+                  triplet_weight_sum=float(weight.sum()),
+                  loss_f32_kernels=loss_k32, loss_f32_plain=loss_p32,
+                  f32_min_cosine=cos32[worst], f32_min_cosine_tensor=worst,
+                  f32_cos_limit=TRAIN_GRAD_COS, tensors_compared=len(cos32))
+    return cfg, ts, batch, plans, fields
+
+
+def phase_panoptic_loop(card: str, loop: dict) -> dict:
+    """The panoptic recipe's loop with PQ and AP each epoch (phase 14),
+    then one step on injected triplets (`injected_step`) and 10 steps
+    that lower the loss."""
+    recipe = panoptic_recipe()
+    res, line = run_task_loop(card, "panoptic_loop", recipe, NUM_CLASSES,
+                              loop, ("val_pq", "val_ap"))
+    del res
+    cfg, ts, batch, plans, fields = injected_step("panoptic", recipe,
+                                                  NUM_CLASSES)
+    step = train_step.make_train_step(cfg, recipe.task_config,
+                                      mask_plans=plans, device="cuda")
+    losses = [fields["step_metrics"]["loss"]]
+    for _ in range(TRAIN_STEPS - 1):
+        ts, metrics = step(ts, batch)
+        losses.append(float(metrics["loss"]))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"panoptic {TRAIN_STEPS} steps: finite loss that falls: {losses}")
+    eval_ms = eval_batch_ms(recipe, ts, batch)
+    emit(**line, **fields, losses=losses, eval_batch=eval_ms)
+    return {k: line["launches"][k] for k in ("K1", "K2", "K4")}
+
+
+def phase_instance_loop(card: str, loop: dict) -> dict:
+    """The instance recipe's loop with AP each epoch (phase 15), then the
+    DBSCAN on the first validation batch's embeddings: on the card (ms
+    per image) and on the CPU, the same masks; then one step on injected
+    triplets (`injected_step`, the triplet on the embeddings)."""
+    recipe = instance_recipe()
+    _, val_ds, num_classes = make_datasets(recipe, None)
+    res, line = run_task_loop(card, "instance_loop", recipe, num_classes,
+                              loop, ("val_ap",))
+    ((_, host),) = list(evaluators._iter_eval(
+        recipe, val_ds, num_classes, res.state, max_batches=1,
+        compute_dtype="bfloat16", device="cuda"))
+    eval_ms = eval_batch_ms(recipe, res.state, first_batch(val_ds))
+    del res
+    pred, emb = host["pred"], host["embeddings"]
+    check(emb.is_cuda, "instance eval: the embeddings stay on the card")
+    clustering.instances_from_embeddings(pred[0], emb[0])     # warm-up
+    card_ms, card_masks, cpu_s, same = [], [], 0.0, []
+    for b in range(pred.shape[0]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks = clustering.instances_from_embeddings(pred[b], emb[b])
+        torch.cuda.synchronize()
+        card_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        cpu = clustering.instances_from_embeddings(pred[b], emb[b].cpu())
+        cpu_s += time.perf_counter() - t0
+        same.append(len(cpu) == len(masks) and all(
+            np.array_equal(a, c) for a, c in zip(masks, cpu)))
+        card_masks.append(len(masks))
+    pixels = [int(max(np.bincount(p[p > 0].ravel(), minlength=1)))
+              for p in pred]
+    check(all(same), f"instance DBSCAN: the card's masks equal the CPU's "
+          f"image by image: {same}")
+    del host, pred, emb
+    *_, fields = injected_step("instance", recipe, num_classes)
+    emit(**line, **fields, dbscan_ms_per_image=float(np.mean(card_ms)),
+         dbscan_ms=card_ms, dbscan_cpu_s=cpu_s, dbscan_masks=card_masks,
+         dbscan_largest_class_pixels=pixels, dbscan_card_equals_cpu=same,
+         eval_batch=eval_ms)
+    return {k: line["launches"][k] for k in ("K1", "K2", "K4")}
+
+
 def phase_safe(card: str) -> dict:
     """The serving and training paths with the safe softmax on: their
     checks, wall times and device profiles. Returns the launches of K3
@@ -1536,6 +1858,8 @@ def main() -> int:
     del train
     loop = phase_loop(card)
     phase_loop_time(card, loop)
+    panoptic = phase_panoptic_loop(card, loop)
+    instance = phase_instance_loop(card, loop)
     kernel_online = phase_kernel_online()
     kernel_bwd_noclamp = phase_kernel_bwd_noclamp()
     safe = phase_safe(card)
@@ -1561,12 +1885,16 @@ def main() -> int:
         kernel_entry("flash_fwd_nomax", fwd_src,
                      "maskunet_tpu/ops/flash_attention.py:164",
                      totals["launches"], kernel["max_abs_err"], totals,
-                     bodies_bf16=fwd_bodies, launches_loop=loop["K1"]),
+                     bodies_bf16=fwd_bodies, launches_loop=loop["K1"],
+                     launches_panoptic=panoptic["K1"],
+                     launches_instance=instance["K1"]),
         kernel_entry("flash_fwd_nomax_lse", fwd_src,
                      "maskunet_tpu/ops/flash_attention.py:267",
                      train_launches["K2"], kernel_lse["max_abs_err"],
                      train_totals["K2"], bodies_bf16=fwd_bodies,
-                     launches_loop=loop["K2"]),
+                     launches_loop=loop["K2"],
+                     launches_panoptic=panoptic["K2"],
+                     launches_instance=instance["K2"]),
         kernel_entry("flash_fwd_online", online_src,
                      "maskunet_tpu/ops/flash_attention.py:111",
                      safe["K3"], kernel_online["max_abs_err"], online_totals,
@@ -1579,7 +1907,9 @@ def main() -> int:
                      train_totals["K4"],
                      bodies_bf16={str(c): fk.flash_bwd_body(c, torch.bfloat16)
                                   for c in fk.KERNEL_CHANNELS},
-                     launches_loop=loop["K4"]),
+                     launches_loop=loop["K4"],
+                     launches_panoptic=panoptic["K4"],
+                     launches_instance=instance["K4"]),
         kernel_entry("old_flash_fwd", online_src, "tools/softmax_ab.py:29",
                      tools["K5"]["launches"], tools["K5"]["max_abs_err"],
                      tools["K5"], bodies_bf16={"64": online_bodies["64"]}),

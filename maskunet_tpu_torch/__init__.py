@@ -13,17 +13,23 @@ same way so each module's counterpart sits at the same path:
             segmentation metrics
   models/   MaskAttn-UNet: init, apply (eval and train), BN folding, bf16
             cast
-  losses/   cross-entropy
-  train/    the train and eval steps, the optimizer and its lr
-            schedules, the training loop and evaluation
+  losses/   cross-entropy, the instance-contrastive triplet loss
+  train/    the train and eval steps (the loss blends of all four
+            patterns), the optimizer and its lr schedules, the training
+            loop and its validation
+  evaluation/  RLE, connected-component instances, DBSCAN of the
+            embeddings (PyTorch, on the card), COCO mask AP, PQ
   utils/    weights handed over from the JAX package's numpy trees, the
-            profiler window, the NaN guard and the stall watchdog
-  tasks/    the recipe table, the datasets a recipe trains on
+            profiler window, the NaN guard and the stall watchdog, the
+            native mask ops (csrc/maskops.cpp, built with g++ on first
+            use)
+  tasks/    the recipe table, the datasets a recipe trains on, the
+            semantic, instance and panoptic evaluators
   tools/    A/B of kernel variants on the card
   serve.py  the micro-batching HTTP server
 
 It imports torch and numpy, never jax or anything of `maskunet_tpu`.
 The serving path, the training step and the training loop (with
-checkpoints both ways and the synthetic dataset) are ported; the real
-dataset readers, the loss blends and the evaluators come next.
+checkpoints both ways and the synthetic dataset), the loss blends and the
+evaluators are ported; the real dataset readers come next.
 """

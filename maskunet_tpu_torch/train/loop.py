@@ -6,9 +6,10 @@ saves, a per-epoch 'latest' checkpoint, EarlyStopping on training loss
 saving 'best', the overfit circuit breaker on mIoU, in-loop validation,
 a prefetched input pipeline, jsonl metrics and an images/sec meter.
 
-Meshes and the pipeline (parallel slice) and validation of panoptic and
-instance recipes (evaluation slice) raise here; the loss blends raise in
-the step.
+In-training validation gives loss and mIoU, and for panoptic recipes
+PQ and AP, for instance recipes AP at the last of `eval_max_queries`
+(`tasks/evaluators.py`, on the cached validation set). Meshes and the
+pipeline (parallel slice) raise here.
 """
 
 from __future__ import annotations
@@ -182,17 +183,12 @@ class _HostMetrics:
         return dict(zip(self.keys, self.host.tolist()))
 
 
-def _check_unported(recipe: Recipe, mesh, pipeline_microbatches: int,
-                    eval_every: int | None) -> None:
+def _check_unported(mesh, pipeline_microbatches: int) -> None:
     if mesh is not None:
         raise NotImplementedError("mesh: parallel slice")
     if pipeline_microbatches > 1:
         raise NotImplementedError(
             "pipeline_microbatches > 1: parallel slice (GPipe)")
-    if eval_every and recipe.task != "semantic":
-        raise NotImplementedError(
-            f"eval_every on a {recipe.task} recipe: evaluation slice "
-            "(tasks/evaluators.py)")
 
 
 def train(recipe: Recipe, data_root: str | None, workdir: str, *,
@@ -227,7 +223,7 @@ def train(recipe: Recipe, data_root: str | None, workdir: str, *,
     counts steps from that step, so it ends where an uninterrupted run
     would (JAX's loop restarts both counts at 0 after a resume). A fresh
     run is the same in both."""
-    _check_unported(recipe, mesh, pipeline_microbatches, eval_every)
+    _check_unported(mesh, pipeline_microbatches)
     dev = resolve_device(device)
     train_ds, val_ds, num_classes = make_datasets(recipe, data_root)
     if data_fraction < 1.0:
@@ -407,6 +403,10 @@ def train(recipe: Recipe, data_root: str | None, workdir: str, *,
                 record.update({f"val_{k}": v for k, v in val.items()})
                 record["val_sample_images"] = min(
                     eval_max_batches * recipe.batch_size, len(val_ds))
+                record.update(_evaluate_task(
+                    recipe, data_root, ts, (val_ds, num_classes),
+                    max_batches=eval_max_batches, attn_impl=attn_impl,
+                    compute_dtype=compute_dtype, device=dev))
             history.append(record)
             logger.log(record)
             if verbose:
@@ -492,13 +492,33 @@ def _evaluate_state(recipe: Recipe, cfg, ts, val_ds, *,
     return {k: v / count for k, v in total.items()}
 
 
+def _evaluate_task(recipe: Recipe, data_root: str | None, ts,
+                   dataset: tuple, **kw) -> dict[str, float]:
+    """The task metrics of in-training validation: val_pq and val_ap
+    (panoptic), val_ap at the last of `eval_max_queries` (instance), none
+    (semantic). The evaluators reuse the loop's cached validation set
+    and its eval step."""
+    from maskunet_tpu_torch.tasks import evaluators
+    if recipe.task == "panoptic":
+        pan = evaluators.evaluate_panoptic(recipe, data_root, ts,
+                                           dataset=dataset, **kw)
+        return {"val_pq": pan["pq"]["All"]["pq"], "val_ap": pan["ap"]["AP"]}
+    if recipe.task == "instance":
+        q = recipe.eval_max_queries[-1]
+        inst = evaluators.evaluate_instances(recipe, data_root, ts,
+                                             max_queries=(q,),
+                                             dataset=dataset, **kw)
+        return {"val_ap": inst[q]["AP"]}
+    return {}
+
+
 def evaluate(recipe: Recipe, data_root: str | None,
              ts: state_lib.TrainState, *, mesh=None, attn_impl: str = "auto",
              compute_dtype: str = "float32",
              max_batches: int | None = None,
              device: str | torch.device = "cuda") -> dict[str, float]:
     """Validation pass: loss + mIoU with running BN stats."""
-    _check_unported(recipe, mesh, 1, None)
+    _check_unported(mesh, 1)
     _, val_ds, num_classes = make_datasets(recipe, data_root)
     cfg = model_config(recipe, num_classes, attn_impl=attn_impl,
                        compute_dtype=compute_dtype)

@@ -267,7 +267,6 @@ def test_warm_start_from_a_checkpoint_keeps_the_new_head(workdir):
 @pytest.mark.parametrize("kw, match", [
     ({"mesh": object()}, "parallel slice"),
     ({"pipeline_microbatches": 2}, "parallel slice"),
-    ({"eval_every": 1, "recipe": "synthetic_panoptic"}, "evaluation slice"),
     ({"recipe": "ade_semantic"}, "data slice"),
 ])
 def test_unported_options_raise(workdir, kw, match):
