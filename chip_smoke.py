@@ -109,6 +109,27 @@ final result):
     in 14 (the triplet on the embeddings); then the DBSCAN of the first
     validation batch's embeddings on the card (ms per image) gives the
     masks of its own run on the CPU, image by image.
+16. image_io (run right after `device`): `data/image_check.py`'s fixed
+    set decoded and resized through cv2 on this host (a committed JPEG
+    and 8-bit PNG, a 16-bit Cityscapes-style PNG, a seeded image and id
+    map resized INTER_LINEAR and INTER_NEAREST to 128x128): every sha256
+    equals the digest the CPU tests pin; the host's cv2 version, and
+    whether matplotlib imports.
+17. recipes: the port's `make_fake_dataset` writes the ADE (151
+    classes), COCO (133 panoptic categories) and Cityscapes (19) layouts,
+    16 training and 8 validation images of 96 px; each of the nine
+    recipes (batch capped at 8, 128x128, bf16) trains 1 epoch through the
+    readers with validation, counters zeroed before each: K2 and K4 6
+    times a step, K1 6 times a validation batch of each pass, nothing
+    else; a finite loss and val_miou (val_pq, val_ap); img/s.
+18. predict: `predict_directory` on the card with the ade_panoptic state
+    of 17 over 11 fake images (instances, the panoptic export, panels if
+    matplotlib imports; without it a panel raises naming it): K1 6 times
+    a batch, each mask the argmax of a direct eval forward of its batch,
+    and its agreement with the folded bf16 forward.
+19. data_rate: a fake ADE layout of 64 images at 512 px: ms per image to
+    decode and resize to 128 px on this host, the `BatchIterator` (4 I/O
+    threads) and `Prefetcher` img/s against the bare train step's.
 
 It imports torch, numpy and the port, nothing of JAX.
 """
@@ -134,17 +155,20 @@ from torch.autograd import DeviceType
 
 from maskunet_tpu_torch import serve
 from maskunet_tpu_torch.core import checkpoint as ckpt_lib
+from maskunet_tpu_torch.data import ade20k, image_check, resize
 from maskunet_tpu_torch.evaluation import clustering
 from maskunet_tpu_torch.losses import triplet as triplet_lib
 from maskunet_tpu_torch.models import maskattn_unet as mu
 from maskunet_tpu_torch.ops import flash_attention as fa
 from maskunet_tpu_torch.ops import flash_kernels as fk
-from maskunet_tpu_torch.tasks import evaluators, recipes
+from maskunet_tpu_torch.tasks import evaluators, predict, recipes
 from maskunet_tpu_torch.tasks.datasets import make_datasets
 from maskunet_tpu_torch.tools import bf16_softmax_experiment as bf16_tool
+from maskunet_tpu_torch.tools import make_fake_dataset as fake_data
 from maskunet_tpu_torch.tools import softmax_ab
 from maskunet_tpu_torch.train import loop as train_loop
 from maskunet_tpu_torch.train import step as train_step
+from maskunet_tpu_torch.utils import visualize
 
 BATCH = 8
 IMG = 128
@@ -198,6 +222,20 @@ BLEND_RTOL = 1e-6
 # the step's triplet term against `triplet_from_indices` of a forward of
 # its own on the same parameters and dropout draws (the same kernels)
 TRIPLET_RTOL = 1e-4
+# the data slice: the nine recipes on fake layouts of the reference's
+# on-disk formats at the real class counts (ADE's objectInfo150.txt with
+# its header line: 151; COCO's 133 panoptic categories, and 134 instance
+# classes with the background; Cityscapes' 19), 16 training and 8
+# validation images of 96 px, read at 128 px
+RECIPE_NAMES = ("ade_semantic", "ade_instance", "ade_panoptic",
+                "city_semantic", "city_instance", "city_panoptic",
+                "coco_semantic", "coco_instance", "coco_panoptic")
+FAKE_TRAIN = 16
+FAKE_VAL = 8
+DATA_RATE_SIDE = 512          # ADE20K's usual image side
+DATA_RATE_IMAGES = 64
+PREDICT_IMAGES = 11           # a full batch of 8 and a padded one of 3
+PREDICT_FOLDED_AGREE = 0.9    # argmax, folded bf16 model vs unfolded
 
 failures: list[str] = []
 
@@ -1576,7 +1614,7 @@ def phase_instance_loop(card: str, loop: dict) -> dict:
     _, val_ds, num_classes = make_datasets(recipe, None)
     res, line = run_task_loop(card, "instance_loop", recipe, num_classes,
                               loop, ("val_ap",))
-    ((_, host),) = list(evaluators._iter_eval(
+    ((_, _, host),) = list(evaluators._iter_eval(
         recipe, val_ds, num_classes, res.state, max_batches=1,
         compute_dtype="bfloat16", device="cuda"))
     eval_ms = eval_batch_ms(recipe, res.state, first_batch(val_ds))
@@ -1827,6 +1865,257 @@ def phase_tools(card: str) -> dict:
     return out
 
 
+def phase_image_io(card: str) -> dict:
+    """Decode and resize `data/image_check.py`'s fixed set on this host
+    (phase 16): every digest must equal the one the CPU tests pin.
+    Returns the host's cv2 and matplotlib versions (None: no matplotlib)."""
+    got = image_check.digests()
+    libs = image_check.host_libraries()
+    equal = {k: got[k] == image_check.EXPECTED.get(k) for k in got}
+    check(set(got) == set(image_check.EXPECTED) and all(equal.values()),
+          f"image_io: decodes and resizes equal the CPU's digests: {equal}")
+    emit(phase="image_io", card=card, **libs, digests=got,
+         equal_to_cpu=equal)
+    return libs
+
+
+def write_fake_layouts(root: str) -> dict:
+    """The three fake layouts at the real class counts: {dataset: root}."""
+    roots = {"ade20k": os.path.join(root, "ade"),
+             "coco": os.path.join(root, "coco"),
+             "cityscapes": os.path.join(root, "cityscapes")}
+    fake_data.make_ade(roots["ade20k"], n=FAKE_TRAIN, num_classes=151)
+    fake_data.make_coco(roots["coco"], n=FAKE_TRAIN, num_classes=134)
+    fake_data.make_cityscapes(roots["cityscapes"], n=FAKE_TRAIN)
+    return roots
+
+
+def fake_recipe(name: str):
+    """The recipe with its batch capped at 8, as run_all_recipes runs it."""
+    rec = recipes.get(name)
+    return dataclasses.replace(rec, batch_size=min(rec.batch_size, 8))
+
+
+def phase_recipes(card: str, roots: dict) -> tuple:
+    """The nine recipes on the fake layouts (phase 17): `train` for one
+    epoch with validation, counters zeroed before each: K2 and K4 6 times
+    a step, K1 6 times a validation batch of each pass (the loss pass, and
+    the evaluator's for instance and panoptic recipes), nothing else; a
+    finite loss and val_miou (and val_pq, val_ap). Returns (K1, K2 and
+    K4's launches summed over the nine, the ade_panoptic state)."""
+    kw = dict(eval_every=1, compute_dtype="bfloat16", verbose=False,
+              save_checkpoints=False, device="cuda")
+    zeros = dict.fromkeys(counted_wrappers(), 0)
+    total = dict.fromkeys(("K1", "K2", "K4"), 0)
+    pan_state = None
+    for name in RECIPE_NAMES:
+        rec = fake_recipe(name)
+        root = roots[rec.dataset]
+        train_ds, val_ds, classes = make_datasets(rec, root)
+        check(len(train_ds) == FAKE_TRAIN and len(val_ds) == FAKE_VAL,
+              f"recipes {name}: {len(train_ds)} training and "
+              f"{len(val_ds)} validation images, not {FAKE_TRAIN} and "
+              f"{FAKE_VAL}")
+        steps = len(train_ds) // rec.batch_size
+        val_batches = min(8, -(-len(val_ds) // rec.batch_size))
+        passes = 1 if rec.task == "semantic" else 2
+        workdir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+        try:
+            zero_launches()                  # the main path's run
+            t0 = time.monotonic()
+            res = train_loop.train(rec, root, workdir, max_epochs=1, **kw)
+            torch.cuda.synchronize()
+            seconds = time.monotonic() - t0
+            launches = kernel_launches()
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        (record,) = res.history
+        keys = ("loss", "miou", "val_loss", "val_miou") + {
+            "panoptic": ("val_pq", "val_ap"), "instance": ("val_ap",),
+            "semantic": ()}[rec.task]
+        check(launches == {**zeros, "K2": 6 * steps, "K4": 6 * steps,
+                           "K1": 6 * val_batches * passes},
+              f"recipes {name}: {steps} steps launch K2 and K4 6 times "
+              f"each, {val_batches} validation batches of {passes} "
+              f"pass(es) K1 6 times each: {launches}")
+        check(record["step"] == steps and all(
+            k in record and math.isfinite(record[k]) for k in keys),
+              f"recipes {name}: a finite {keys}: {record}")
+        for k in total:
+            total[k] += launches[k]
+        row = {"recipe": name, "classes": classes, "batch": rec.batch_size,
+               "steps": steps, "val_images": len(val_ds),
+               "launches": launches, "seconds": seconds,
+               "img_per_s": res.images_per_sec,
+               **{k: record[k] for k in keys}}
+        emit(phase="recipes", card=card, **row)
+        if name == "ade_panoptic":
+            pan_state = res.state
+        del res
+    return total, pan_state
+
+
+def phase_data_rate(card: str, root: str) -> None:
+    """Whether the loader keeps up with the card (phase 19): a fake ADE
+    layout of 512 px images (ADE's usual side), decoded and resized to
+    128 px one image at a time on this host (ms per image, and of those
+    the two decodes), then `BatchIterator` with 4 I/O threads behind the
+    `Prefetcher` to the card (img/s, uncached), against the bare train
+    step of ade_semantic (151 classes, batch 8, bf16) on one of those
+    batches (img/s)."""
+    t0 = time.monotonic()
+    fake_data.make_ade(root, n=DATA_RATE_IMAGES, size=DATA_RATE_SIDE,
+                       num_classes=151)
+    write_s = time.monotonic() - t0
+    ds = ade20k.ADE20KSemanticDataset(root, "training", img_size=IMG)
+    check(len(ds) == DATA_RATE_IMAGES, f"data_rate: {len(ds)} images")
+    load_ms, decode_ms = [], []
+    for i in range(len(ds)):
+        t0 = time.perf_counter()
+        ex = ds[i]
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+        name = ds.files[i]
+        t0 = time.perf_counter()
+        full = resize.imread_rgb(os.path.join(ds.img_dir, name))
+        resize.imread_gray(os.path.join(
+            ds.ann_dir, os.path.splitext(name)[0] + ".png"))
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    check(ex["image"].shape == (IMG, IMG, 3) and full.shape
+          == (DATA_RATE_SIDE, DATA_RATE_SIDE, 3),
+          f"data_rate: {full.shape} read, {ex['image'].shape} out")
+
+    batches = train_loop.pipeline.BatchIterator(ds, BATCH, shuffle=True,
+                                                seed=0, num_threads=4)
+    t0 = time.perf_counter()
+    count = 0
+    with train_loop.pipeline.Prefetcher(batches.epoch(0),
+                                        device="cuda") as prefetcher:
+        for batch in prefetcher:
+            count += int(batch["image"].shape[0])
+    torch.cuda.synchronize()
+    loader_s = time.perf_counter() - t0
+    check(count == DATA_RATE_IMAGES, f"data_rate: the loader gave {count}")
+
+    rec = recipes.get("ade_semantic")
+    cfg = train_loop.model_config(rec, len(ds.categories),
+                                  compute_dtype="bfloat16")
+    ts = train_loop.setup_state(rec, cfg, train_loop.make_optimizer(rec),
+                                device="cuda")
+    step = train_step.make_train_step(
+        cfg, rec.task_config, mask_plans=mu.precompute_mask_plans(ts.masks),
+        device="cuda")
+    batch = first_batch(ds)
+    for _ in range(2):
+        ts, _ = step(ts, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        ts, metrics = step(ts, batch)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    check(math.isfinite(float(metrics["loss"])), "data_rate: finite step")
+    emit(phase="data_rate", card=card, side=DATA_RATE_SIDE,
+         images=DATA_RATE_IMAGES, write_s=write_s,
+         load_ms_per_image=float(np.mean(load_ms)),
+         load_ms_median=float(np.median(load_ms)),
+         decode_ms_per_image=float(np.mean(decode_ms)),
+         loader_threads=4, loader_img_per_s=count / loader_s,
+         step_ms=step_s * 1e3, step_img_per_s=BATCH / step_s,
+         classes=len(ds.categories))
+
+
+def phase_predict(card: str, ts, roots: dict, matplotlib: str | None
+                  ) -> dict:
+    """`predict_directory` on the card (phase 18) with the ade_panoptic
+    state that `recipes` trained, over 11 of the fake ADE images (a full
+    batch and a padded one): instances, the panoptic export and, where
+    matplotlib imports, panels. Each mask must equal the argmax of a
+    direct eval forward of the same batch (what predict computes), and
+    PREDICT_FOLDED_AGREE of the pixels that of the folded bf16 forward."""
+    rec = fake_recipe("ade_panoptic")
+    src = os.path.join(roots["ade20k"], "images", "training")
+    work = tempfile.mkdtemp(prefix="chip_smoke_predict_")
+    try:
+        images = os.path.join(work, "images")
+        os.makedirs(images)
+        for name in sorted(os.listdir(src))[:PREDICT_IMAGES]:
+            shutil.copy(os.path.join(src, name), images)
+        out = os.path.join(work, "out")
+        classes = make_datasets(rec, roots["ade20k"])[2]
+        zero_launches()
+        t0 = time.monotonic()
+        written = predict.predict_directory(
+            rec, ts, images, out, num_classes=classes,
+            compute_dtype="bfloat16", save_instances=True,
+            save_panoptic=True, save_panels=matplotlib is not None,
+            device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        launches = kernel_launches()
+        with open(os.path.join(out, "predictions.json")) as f:
+            manifest = json.load(f)
+        masks = [resize.imread_gray(p) for p in written]
+        outputs = sorted(os.listdir(out))
+        panoptic_files = sorted(os.listdir(os.path.join(out, "panoptic")))
+        ds = predict._DirectoryDataset(images, rec.img_size)
+        cfg = train_loop.model_config(rec, classes,
+                                      compute_dtype="bfloat16")
+        with torch.no_grad():
+            folded = mu.cast_params_for_inference(
+                mu.fold_bn_for_inference(ts.params, ts.model_state, cfg))
+        plans = mu.precompute_mask_plans(ts.masks)
+        direct, fold = [], []
+        batches = train_loop.pipeline.BatchIterator(
+            ds, rec.batch_size, shuffle=False, drop_last=False,
+            pad_last=True)
+        for batch in batches.epoch(0):
+            x = train_loop.pipeline.to_device(batch, "cuda")["image"]
+            with torch.no_grad():
+                o, _ = mu.apply(ts.params, ts.model_state, x, cfg=cfg,
+                                masks=ts.masks, train=False,
+                                mask_plans=plans)
+                f, _ = mu.apply(folded, None, x, cfg=cfg, masks=ts.masks,
+                                folded=True, mask_plans=plans)
+            valid = batch["valid"]
+            direct += list(o.semantic.argmax(-1).cpu().numpy()[valid])
+            fold += list(f.semantic.argmax(-1).cpu().numpy()[valid])
+        no_panel_error = None
+        if matplotlib is None:
+            try:
+                visualize.save_prediction(masks[0], masks[0], masks[0],
+                                          os.path.join(work, "panel.png"))
+            except ModuleNotFoundError as e:
+                no_panel_error = str(e)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    equal = sum(int(np.array_equal(m, d)) for m, d in zip(masks, direct))
+    agree = float(np.mean([np.mean(m == f) for m, f in zip(masks, fold)]))
+    panels = sum(n.endswith("_panel.png") for n in outputs)
+    zeros = dict.fromkeys(counted_wrappers(), 0)
+    check(launches == {**zeros, "K1": 12},
+          f"predict: 2 batches launch K1 6 times each: {launches}")
+    check(len(written) == PREDICT_IMAGES == equal and len(direct)
+          == PREDICT_IMAGES,
+          f"predict: masks equal a direct eval forward: {equal}/"
+          f"{len(written)}")
+    check(agree >= PREDICT_FOLDED_AGREE,
+          f"predict: masks agree with the folded forward: {agree}")
+    check(len(manifest["instances"]) == PREDICT_IMAGES
+          and "predictions.json" in panoptic_files
+          and panels == (PREDICT_IMAGES if matplotlib else 0),
+          f"predict: instances, panoptic export, panels: {outputs}")
+    check(matplotlib is not None or "matplotlib" in (no_panel_error or ""),
+          f"predict: without matplotlib a panel raises naming it: "
+          f"{no_panel_error}")
+    emit(phase="predict", card=card, images=PREDICT_IMAGES, classes=classes,
+         launches=launches, seconds=seconds, masks_equal_direct=equal,
+         folded_agreement=agree, folded_agree_limit=PREDICT_FOLDED_AGREE,
+         instances=sum(len(v) for v in manifest["instances"].values()),
+         panoptic_files=len(panoptic_files), panels=panels,
+         matplotlib=matplotlib, panel_error=no_panel_error)
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, err, t, **extra) -> dict:
     return {**extra, "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -1846,6 +2135,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.monotonic()
     card = phase_device()
+    libs = phase_image_io(card)
     kernel = phase_kernel()
     kernel_lse = phase_kernel_lse()
     kernel_bwd = phase_kernel_bwd()
@@ -1860,6 +2150,22 @@ def main() -> int:
     phase_loop_time(card, loop)
     panoptic = phase_panoptic_loop(card, loop)
     instance = phase_instance_loop(card, loop)
+    data_dir = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        t0_layouts = time.monotonic()
+        roots = write_fake_layouts(data_dir)
+        emit(phase="fake_layouts", card=card,
+             seconds=time.monotonic() - t0_layouts,
+             classes={k: make_datasets(fake_recipe(n), roots[k])[2]
+                      for k, n in (("ade20k", "ade_semantic"),
+                                   ("coco", "coco_panoptic"),
+                                   ("cityscapes", "city_semantic"))})
+        recipe_launches, pan_state = phase_recipes(card, roots)
+        phase_predict(card, pan_state, roots, libs["matplotlib"])
+        del pan_state
+        phase_data_rate(card, os.path.join(data_dir, "ade512"))
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
     kernel_online = phase_kernel_online()
     kernel_bwd_noclamp = phase_kernel_bwd_noclamp()
     safe = phase_safe(card)
@@ -1887,14 +2193,16 @@ def main() -> int:
                      totals["launches"], kernel["max_abs_err"], totals,
                      bodies_bf16=fwd_bodies, launches_loop=loop["K1"],
                      launches_panoptic=panoptic["K1"],
-                     launches_instance=instance["K1"]),
+                     launches_instance=instance["K1"],
+                     launches_recipes=recipe_launches["K1"]),
         kernel_entry("flash_fwd_nomax_lse", fwd_src,
                      "maskunet_tpu/ops/flash_attention.py:267",
                      train_launches["K2"], kernel_lse["max_abs_err"],
                      train_totals["K2"], bodies_bf16=fwd_bodies,
                      launches_loop=loop["K2"],
                      launches_panoptic=panoptic["K2"],
-                     launches_instance=instance["K2"]),
+                     launches_instance=instance["K2"],
+                     launches_recipes=recipe_launches["K2"]),
         kernel_entry("flash_fwd_online", online_src,
                      "maskunet_tpu/ops/flash_attention.py:111",
                      safe["K3"], kernel_online["max_abs_err"], online_totals,
@@ -1909,7 +2217,8 @@ def main() -> int:
                                   for c in fk.KERNEL_CHANNELS},
                      launches_loop=loop["K4"],
                      launches_panoptic=panoptic["K4"],
-                     launches_instance=instance["K4"]),
+                     launches_instance=instance["K4"],
+                     launches_recipes=recipe_launches["K4"]),
         kernel_entry("old_flash_fwd", online_src, "tools/softmax_ab.py:29",
                      tools["K5"]["launches"], tools["K5"]["max_abs_err"],
                      tools["K5"], bodies_bf16={"64": online_bodies["64"]}),

@@ -6,8 +6,10 @@ same way so each module's counterpart sits at the same path:
   core/     layers and initializers as plain functions on tensors, the
             training state, the device choice, checkpoints in the JAX
             package's msgpack format, early stop, metrics logs
-  data/     the seeded synthetic dataset, subsets, the example cache, the
-            batch iterator and the prefetcher to the card
+  data/     image I/O (cv2, imported where it decodes), the ADE20K, COCO
+            and Cityscapes readers, the seeded synthetic dataset, subsets,
+            the example cache, the batch iterator and the prefetcher to
+            the card
   ops/      masked attention, the flash glue, the hand-written CUDA
             kernels it launches (csrc/, built with nvcc on first use),
             segmentation metrics
@@ -22,14 +24,17 @@ same way so each module's counterpart sits at the same path:
   utils/    weights handed over from the JAX package's numpy trees, the
             profiler window, the NaN guard and the stall watchdog, the
             native mask ops (csrc/maskops.cpp, built with g++ on first
-            use)
+            use), the sample and prediction panels (matplotlib)
   tasks/    the recipe table, the datasets a recipe trains on, the
-            semantic, instance and panoptic evaluators
-  tools/    A/B of kernel variants on the card
+            semantic, instance and panoptic evaluators, prediction over a
+            directory of images
+  tools/    A/B of kernel variants on the card, the fake on-disk layouts,
+            the nine recipes end to end
   serve.py  the micro-batching HTTP server
 
 It imports torch and numpy, never jax or anything of `maskunet_tpu`.
 The serving path, the training step and the training loop (with
-checkpoints both ways and the synthetic dataset), the loss blends and the
-evaluators are ported; the real dataset readers come next.
+checkpoints both ways), the loss blends, the evaluators, the dataset
+readers and prediction are ported; export, int8, the CLI and the
+parallel axes are not yet.
 """

@@ -15,7 +15,8 @@ this module implements the same wire formats from the spec:
 Mask IoU follows COCOeval semantics including the `iscrowd` variant (union
 = area of the detection), through the native popcount kernel
 (csrc/maskops.cpp); `iou_plain` is its numpy version, which tests hold it
-against. Polygon rasterisation needs cv2 and comes with the data slice.
+against. Polygons are rasterised with cv2.fillPoly, as in the JAX
+package; cv2 is imported inside `polygons_to_mask` only.
 """
 
 from __future__ import annotations
@@ -152,16 +153,25 @@ def iou_plain(dt: list[dict], gt: list[dict],
 
 def polygons_to_mask(polygons: list[list[float]], h: int, w: int
                      ) -> np.ndarray:
-    """COCO polygon segmentation -> binary mask: the JAX package
-    rasterises with cv2, which the port does not have."""
-    raise NotImplementedError(
-        "polygons_to_mask: data slice (polygon rasterisation; the JAX "
-        "package uses cv2.fillPoly)")
+    """COCO polygon segmentation -> binary mask (cv2 rasterization).
+
+    Replaces `COCO.annToMask` for polygon annotations
+    (coco_instance.py:62-65). Boundary pixels may differ from pycocotools'
+    integer-rounding rasterizer by a sub-pixel fringe, as in the JAX
+    package.
+    """
+    import cv2
+
+    mask = np.zeros((h, w), np.uint8)
+    pts = [np.round(np.asarray(p).reshape(-1, 2)).astype(np.int32)
+           for p in polygons if len(p) >= 6]
+    if pts:
+        cv2.fillPoly(mask, pts, 1)
+    return mask
 
 
 def segmentation_to_mask(seg, h: int, w: int) -> np.ndarray:
-    """Any COCO segmentation (polygon list / RLE dict) -> binary mask;
-    polygons raise until the data slice."""
+    """Any COCO segmentation (polygon list / RLE dict) -> binary mask."""
     if isinstance(seg, list):
         return polygons_to_mask(seg, h, w)
     if isinstance(seg, dict):

@@ -6,7 +6,7 @@ image uploads and returns class-id mask PNGs; requests are micro-batched
 the folded bf16 model, and fanned back out.
 
     python -m maskunet_tpu_torch.serve --recipe ade_semantic \\
-        --num-classes 150 --port 8799 [--device cuda]
+        --data-root <ADEChallengeData2016> --port 8799 [--device cuda]
 
     curl -s -X POST --data-binary @image.jpg \\
         http://localhost:8799/predict > mask.png
@@ -15,8 +15,9 @@ the folded bf16 model, and fanned back out.
 The model is `{workdir}/{checkpoint_name}_{tag}.msgpack` where there is
 one, written by the JAX package or by the port (the same format), and a
 fresh init seeded with the recipe's seed otherwise, as the JAX server does.
-The dataset-derived class count, exported artifacts, int8 and multi-card
-serving come in later slices.
+The class count is `--num-classes`, or the recipe's dataset's (read under
+`--data-root`, as the JAX server does). Exported artifacts, int8 and
+multi-card serving come in later slices.
 """
 
 from __future__ import annotations
@@ -354,9 +355,10 @@ def main(argv=None) -> int:
     ap.add_argument("--recipe", required=True)
     ap.add_argument("--workdir", default="runs")
     ap.add_argument("--tag", default="best")
-    ap.add_argument("--num-classes", type=int, required=True,
-                    help="class count (the dataset-derived default comes "
-                         "with the datasets slice)")
+    ap.add_argument("--data-root", default=None)
+    ap.add_argument("--num-classes", type=int, default=None,
+                    help="class count (default: the recipe's dataset's, "
+                         "read under --data-root)")
     ap.add_argument("--port", type=int, default=8799)
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--max-wait-ms", type=float, default=10.0)
@@ -382,9 +384,14 @@ def main(argv=None) -> int:
         recipe = dataclasses.replace(recipe, attn_output_layout=layout)
         print(f"attention-output layout: {layout} (from import sidecar)",
               flush=True)
+    if args.num_classes is not None:
+        num_classes = args.num_classes
+    else:
+        from maskunet_tpu_torch.tasks.datasets import make_datasets
+        _, _, num_classes = make_datasets(recipe, args.data_root)
     batch = args.batch_size or recipe.batch_size
     runner, img_size = build_model_runner(
-        recipe, args.num_classes, args.workdir, args.tag,
+        recipe, num_classes, args.workdir, args.tag,
         compute_dtype=args.compute_dtype, batch_size=batch,
         device=args.device)
     # warm up (kernel build, cuDNN plans) before accepting traffic
@@ -398,7 +405,7 @@ def main(argv=None) -> int:
     draining = threading.Event()
     server = ThreadingHTTPServer(
         ("0.0.0.0", args.port),
-        make_handler(batcher, img_size, args.num_classes, draining=draining))
+        make_handler(batcher, img_size, num_classes, draining=draining))
 
     # graceful shutdown: SIGTERM/SIGINT flip /healthz to 503 but keep
     # accepting while in-flight requests drain; the accept loop stops

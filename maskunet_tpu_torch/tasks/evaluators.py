@@ -9,28 +9,32 @@ The semantic flow (val loss + mIoU, ade_semantic.py:439-474) is
 - `evaluate_instances`: predictions -> temperature-softmax probs -> argmax
   -> connected-component instances scored by mean class probability,
   ground truth instances from the semantic mask (ADE pattern,
-  ade_instance.py:399-457) or the instance-id map / DBSCAN embeddings
-  (Cityscapes pattern, city_instance.py:451-513); COCO-style segm AP with
-  a max_queries sweep.
+  ade_instance.py:399-457), the instance-id map (Cityscapes pattern,
+  city_instance.py:451-513) or the ragged per-annotation masks (COCO);
+  DBSCAN of the embeddings where the model has them; COCO-style segm AP
+  with a max_queries sweep.
 - `evaluate_panoptic`: per-image IoU + instance AP at iouThrs 0.5:0.95
   (ade_panoptic.py:520-592) + PQ via panoptic fusion, decoded on 4 host
   threads while the next batch runs on the device.
 
-The COCO instance ground truth (the ragged per-annotation masks) needs the
-COCO reader, which comes with the data slice.
+Records are keyed by the dataset's image ids (COCO's json ids; the
+dataset index elsewhere).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import os
 
 import numpy as np
 import torch
 
 from maskunet_tpu_torch.core.device import resolve_device
+from maskunet_tpu_torch.data import coco as coco_data
 from maskunet_tpu_torch.data import pipeline
 from maskunet_tpu_torch.evaluation import (clustering, coco_eval, instances,
                                            panoptic)
+from maskunet_tpu_torch.evaluation import rle as rle_lib
 from maskunet_tpu_torch.models import maskattn_unet as model_lib
 from maskunet_tpu_torch.tasks.datasets import make_datasets
 from maskunet_tpu_torch.tasks.recipes import Recipe
@@ -48,8 +52,7 @@ def _iter_eval(recipe: Recipe, ds, num_classes: int, ts, *,
                attn_impl: str = "auto", max_batches: int | None = None,
                compute_dtype: str = "float32",
                device: str | torch.device = "cuda"):
-    """Yields (dataset indices, host dict) per batch; an image's id is its
-    dataset index (the ported datasets carry no other). Host: numpy
+    """Yields (dataset indices, image ids, host dict) per batch. Host: numpy
     pred/prob/label/valid[/instance], and the embeddings (if the model has
     them) as a tensor left on `device`, where the DBSCAN runs. Rows beyond
     the dataset end (pad_last) are excluded via host['valid']. The step
@@ -79,9 +82,42 @@ def _iter_eval(recipe: Recipe, ds, num_classes: int, ts, *,
             host["embeddings"] = result["embeddings"]
         indices = [min(i * recipe.batch_size + b, n - 1)
                    for b in range(host["pred"].shape[0])]
-        yield indices, host
+        yield indices, [int(ds.image_id(j)) for j in indices], host
         if max_batches is not None and i + 1 >= max_batches:
             return
+
+
+def _ragged_coco_gt(recipe: Recipe, data_root: str):
+    """Ragged ground-truth twin for the coco_instance recipe: real
+    per-annotation masks + category ids of the validation split (the
+    training target is the reference's summed-mask map, whose values are
+    overlap counts — wrong as evaluation gt; the reference's own final
+    eval is broken here, coco_instance.py:386-413). Returns a function of
+    the dataset index."""
+    ds = coco_data.COCOInstanceDataset(
+        os.path.join(data_root, "annotations", "instances_val2017.json"),
+        os.path.join(data_root, "val2017"), img_size=recipe.img_size,
+        summed_target=False)
+
+    def gt_for(index: int) -> list[dict]:
+        ex = ds[index]
+        out = []
+        for m, cat in zip(ex["masks"], ex["labels"]):
+            ys, xs = np.nonzero(m)
+            if len(ys) == 0:
+                continue
+            out.append({
+                "category_id": int(cat),
+                "bbox": [int(xs.min()), int(ys.min()),
+                         int(xs.max() - xs.min() + 1),
+                         int(ys.max() - ys.min() + 1)],
+                "score": 1.0,
+                "area": int(m.sum()),
+                "segmentation": rle_lib.encode(m.astype(np.uint8)),
+            })
+        return out
+
+    return gt_for
 
 
 def evaluate_instances(recipe: Recipe, data_root: str | None, ts, *,
@@ -104,21 +140,19 @@ def evaluate_instances(recipe: Recipe, data_root: str | None, ts, *,
     coco_instance recipe scores every instance as category 1, since its
     training target's "classes" are overlap counts (coco_instance.py:
     331-341), as the reference's own final eval does (:395-403)."""
-    if (recipe.dataset == "coco" and recipe.task == "instance"
-            and data_root is not None):
-        raise NotImplementedError(
-            "evaluate_instances on COCO: data slice (the ragged per-"
-            "annotation ground truth needs the COCO reader)")
     if max_queries is None:
         max_queries = recipe.eval_max_queries
     class_agnostic = recipe.dataset == "coco" and recipe.task == "instance"
+    ragged_gt = None
+    if class_agnostic and data_root is not None:
+        ragged_gt = _ragged_coco_gt(recipe, data_root)
     if dataset is not None:
         ds, num_classes = dataset
     else:
         ds, num_classes = _eval_dataset(recipe, data_root)
     gts: list[dict] = []
     dts: list[dict] = []
-    for ids, host in _iter_eval(
+    for indices, ids, host in _iter_eval(
             recipe, ds, num_classes, ts, attn_impl=attn_impl,
             max_batches=max_batches, compute_dtype=compute_dtype,
             device=device):
@@ -133,7 +167,9 @@ def evaluate_instances(recipe: Recipe, data_root: str | None, ts, *,
                 pred_inst = clustering.annotate_instances(masks, pred)
             else:
                 pred_inst = instances.get_instances_from_mask(pred, prob)
-            if "instance" in host:
+            if ragged_gt is not None:
+                gt_inst = ragged_gt(indices[b])
+            elif "instance" in host:
                 gt_inst = instances.instances_from_id_map(
                     host["instance"][b], host["label"][b])
             else:
@@ -205,7 +241,7 @@ def evaluate_panoptic(recipe: Recipe, data_root: str | None, ts, *,
 
     futures = []
     with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        for ids, host in _iter_eval(
+        for _, ids, host in _iter_eval(
                 recipe, ds, num_classes, ts, attn_impl=attn_impl,
                 max_batches=max_batches, compute_dtype=compute_dtype,
                 device=device):

@@ -5,7 +5,7 @@ g++ at first use into `maskunet_tpu_torch/_build/` (named by a digest of
 the source and flags, written under a temporary name and renamed, so
 processes that build at once do not collide). No `-march=native`: the
 built library may be copied between hosts. A failed build raises; there
-is no fallback (the JAX package's is cv2, which the port does not have).
+is no fallback (the JAX package falls back to cv2 and numpy).
 
 - `cc_label(mask) -> (num_labels, labels)`: 8-connectivity connected
   components (cv2.connectedComponents-compatible).

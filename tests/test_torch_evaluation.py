@@ -72,8 +72,10 @@ def test_rle_matches_jax(rng):
         assert trle._compress(counts) == got["counts"]
     rles = [trle.encode(m.astype(np.uint8)) for m in masks[:5]]
     assert trle.merge(rles) == jrle.merge(rles)
-    with pytest.raises(NotImplementedError, match="data slice"):
-        trle.segmentation_to_mask([[0, 0, 5, 0, 5, 5]], 8, 8)
+    poly = [[0, 0, 5, 0, 5, 5], [1.4, 6.6, 7.5, 6, 7, 7.6, 2, 7.2],
+            [1, 1, 2, 2]]
+    assert np.array_equal(trle.segmentation_to_mask(poly, 8, 8),
+                          jrle.segmentation_to_mask(poly, 8, 8))
 
 
 def test_cc_label_matches_jax(rng):

@@ -82,15 +82,14 @@ def _recording(monkeypatch):
 
 
 def _replay(monkeypatch, records, module=jev):
-    """Replays the port's (indices, host) batches into `module`'s
-    `_iter_eval`: into JAX's as (indices, image ids, numpy host), the ids
-    being the dataset indices as in the port."""
+    """Replays the port's (indices, image ids, host) batches into
+    `module`'s `_iter_eval`: into JAX's with a numpy host."""
     def replay(*args, **kw):
-        for indices, host in records:
+        for indices, ids, host in records:
             if module is tev:
-                yield indices, host
+                yield indices, ids, host
                 continue
-            yield indices, indices, {
+            yield indices, ids, {
                 k: v.numpy() if torch.is_tensor(v) else v
                 for k, v in host.items()}
 
@@ -122,8 +121,8 @@ def test_evaluators_match_jax_on_the_same_batches(monkeypatch, trained,
         want = jev.evaluate_instances(jrecipe, None, None,
                                       dataset=(val_ds, nc))
         assert set(got) == set(recipe.eval_max_queries)
-    assert len(records) == 3 and records[-1][1]["valid"].sum() == 4
-    assert ("embeddings" in records[0][1]) == (recipe.embed_dim > 0)
+    assert len(records) == 3 and records[-1][2]["valid"].sum() == 4
+    assert ("embeddings" in records[0][2]) == (recipe.embed_dim > 0)
     assert got == want
 
 
@@ -142,7 +141,7 @@ def _oracle_records(ds, nc, rng, embed_dim):
             emb = centers[inst] + rng.standard_normal(
                 inst.shape + (embed_dim,)) * 0.05
             host["embeddings"] = torch.from_numpy(emb.astype(np.float32))
-        records.append((idx, host))
+        records.append((idx, idx, host))
     return records
 
 
@@ -170,6 +169,11 @@ def test_evaluators_match_jax_on_oracle_predictions(monkeypatch, rng, name):
 
 
 def test_coco_instance_ground_truth_waits_for_the_data_slice():
-    with pytest.raises(NotImplementedError, match="data slice"):
-        tev.evaluate_instances(trecipes.get("coco_instance"), "/data", None,
-                               device="cpu")
+    """The data slice has landed: the COCO instance ground truth is read
+    from the layout under data_root, so a missing layout raises as JAX's
+    does (tests/test_torch_datasets.py evaluates a real one)."""
+    for module, recipes_mod in ((tev, trecipes), (jev, jrecipes)):
+        kw = {"device": "cpu"} if module is tev else {}
+        with pytest.raises(FileNotFoundError):
+            module.evaluate_instances(recipes_mod.get("coco_instance"),
+                                      "/nonexistent", None, **kw)

@@ -255,8 +255,10 @@ def test_fresh_runner_on_cpu_and_jax_checkpoint_refused(tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, imports without jax,
-    any module of the JAX package, or what the card's machine lacks
-    (cv2, scikit-learn, PIL)."""
+    any module of the JAX package, scikit-learn (which the card's machine
+    lacks), or cv2 and PIL: the card's machine has cv2 4.13 and PIL 12.2,
+    and the port imports cv2 inside the functions that decode, so that
+    importing it loads neither."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import maskunet_tpu_torch as pkg\n"
