@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py --safe-export <dir>   # phase 21's child
+
 Phases (each prints JSON lines; any failure exits non-zero and prints no
 final result):
 
@@ -130,6 +132,30 @@ final result):
 19. data_rate: a fake ADE layout of 64 images at 512 px: ms per image to
     decode and resize to 128 px on this host, the `BatchIterator` (4 I/O
     threads) and `Prefetcher` img/s against the bare train step's.
+20. op_dispatch (right after the serving times): the serving forward with
+    K1 launched directly, as the eager wrapper does, and through the
+    operator `maskunet::flash_fwd_nomax` that exported artifacts call, in
+    turns: 6 launches a forward both ways, device ms within 2%, wall ms.
+21. export (after predict): the ADE serving model (c_out 150, 128x128,
+    batch 8, bf16, seeded init) exported with `torch.export` and loaded
+    back: over 16 images its maps equal the live runner's exactly, K1 6
+    launches a forward through the operator; bytes, ms a batch against
+    the live runner; in a subprocess with MASKUNET_SAFE_SOFTMAX=1 (this
+    script with `--safe-export <dir>`) the safe artifact, K3 6 a forward,
+    equal to the safe live runner; `serve --artifact` in a subprocess
+    answers 4 HTTP requests with the runner's maps.
+22. int8: the same model with int8 convs, dynamic and calibrated on the
+    16 fake ADE images of 17: argmax agreement with bf16 above 0.85, an
+    image's map independent of its batch-mates (exact), no float conv,
+    K1 6 a forward; the int8 artifact agrees with the live int8 runner
+    above 0.95, and in f32 is under 0.45 of the float artifact's bytes
+    (JAX's bounds, tests/test_quantize.py); ms a batch int8 vs bf16.
+23. cli: `python -m maskunet_tpu_torch.cli` in subprocesses on the fake
+    layouts: recipes, train (ade_semantic 4 steps, city_instance 2),
+    visualize (fails naming matplotlib where the host has none),
+    evaluate (semantic; instances), predict, export --quantize int8,
+    import-torch of a `module.`-prefixed .pth of the trained state, and
+    evaluate of the import, equal to the source's; JSON keys as JAX's.
 
 It imports torch, numpy and the port, nothing of JAX.
 """
@@ -153,8 +179,10 @@ import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 
+from maskunet_tpu_torch import export as export_lib
 from maskunet_tpu_torch import serve
 from maskunet_tpu_torch.core import checkpoint as ckpt_lib
+from maskunet_tpu_torch.core import layers
 from maskunet_tpu_torch.data import ade20k, image_check, resize
 from maskunet_tpu_torch.evaluation import clustering
 from maskunet_tpu_torch.losses import triplet as triplet_lib
@@ -168,6 +196,7 @@ from maskunet_tpu_torch.tools import make_fake_dataset as fake_data
 from maskunet_tpu_torch.tools import softmax_ab
 from maskunet_tpu_torch.train import loop as train_loop
 from maskunet_tpu_torch.train import step as train_step
+from maskunet_tpu_torch.utils import torch_import
 from maskunet_tpu_torch.utils import visualize
 
 BATCH = 8
@@ -236,6 +265,19 @@ DATA_RATE_SIDE = 512          # ADE20K's usual image side
 DATA_RATE_IMAGES = 64
 PREDICT_IMAGES = 11           # a full batch of 8 and a padded one of 3
 PREDICT_FOLDED_AGREE = 0.9    # argmax, folded bf16 model vs unfolded
+# the serving extras: JAX's own bounds for int8 serving
+# (tests/test_quantize.py): argmax agreement with the float model above
+# INT8_AGREE (:84), the int8 artifact under INT8_BYTES of the float one,
+# both exported in f32 (:108), the int8 artifact's maps agreeing with
+# the live int8 runner's above INT8_ARTIFACT_AGREE (:118)
+INT8_AGREE = 0.85
+INT8_BYTES = 0.45
+INT8_ARTIFACT_AGREE = 0.95
+EXPORT_IMAGES = 16
+# the flash operators' host cost on the eager serving forward: device ms
+# a batch through the operators within OP_DEVICE_RTOL of the direct
+# launches' (the same kernels; the profiler's sums vary by ~0.1%)
+OP_DEVICE_RTOL = 0.02
 
 failures: list[str] = []
 
@@ -2116,6 +2158,533 @@ def phase_predict(card: str, ts, roots: dict, matplotlib: str | None
     return launches
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def wall_and_device_ms(fn) -> tuple:
+    """One serving forward `fn()` timed: the host's wall ms a call, best
+    of 3 windows of 10 fenced by a synchronise, and the device's ms a call,
+    the profiler's kernel sum over 3 calls ("not measured" if it saw no
+    kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) / 10)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_kernel_rows(prof)
+    return best * 1e3, (sum(r[0] for r in rows) / 3e3 if rows
+                        else "not measured")
+
+
+def in_turns(fns: dict) -> dict:
+    """`wall_and_device_ms` of two forwards {name: fn} in turns a, b, b, a;
+    returns {name: {"wall_ms": [2], "device_ms": [2]}}."""
+    (a, fa_), (b, fb_) = fns.items()
+    out = {a: {"wall_ms": [], "device_ms": []},
+           b: {"wall_ms": [], "device_ms": []}}
+    for name, fn in ((a, fa_), (b, fb_), (b, fb_), (a, fa_)):
+        wall, dev = wall_and_device_ms(fn)
+        out[name]["wall_ms"].append(wall)
+        out[name]["device_ms"].append(dev)
+    return out
+
+
+def mean_ms(times: list) -> float | str:
+    return (float(np.mean(times)) if all(isinstance(t, float) for t in times)
+            else "not measured")
+
+
+def phase_op_dispatch(card: str, runner, batch: np.ndarray) -> None:
+    """The flash operators' cost on the eager serving forward (phase 20):
+    the same forward with K1 launched directly, as the eager wrapper does
+    (unchanged by the operators), and through the operator
+    `maskunet::flash_fwd_nomax`, which exported artifacts call, in turns
+    direct, operator, operator, direct: K1 6 launches a forward both ways,
+    the device ms a batch within OP_DEVICE_RTOL, the wall ms printed."""
+    direct = fk.flash_fwd_nomax
+
+    def through_op(q, k, v, bias, scale, use_valid=True):
+        return fk._flash_fwd_nomax_op(q, k, v, bias, float(scale),
+                                      bool(use_valid))
+
+    launches = {}
+
+    def with_kernel(wrapper):
+        def run():
+            fk.flash_fwd_nomax = wrapper
+            try:
+                return runner(batch)
+            finally:
+                fk.flash_fwd_nomax = direct
+        return run
+
+    fns = {"direct": with_kernel(direct),
+           "operator": with_kernel(through_op)}
+    for name, fn in fns.items():
+        zero_launches()
+        through_op.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        launches[name] = direct.launches + through_op.launches
+    times = in_turns(fns)
+    dev = {k: mean_ms(v["device_ms"]) for k, v in times.items()}
+    wall = {k: mean_ms(v["wall_ms"]) for k, v in times.items()}
+    check(launches == {"direct": 6, "operator": 6},
+          f"op_dispatch: K1 6 launches a forward both ways: {launches}")
+    check(all(isinstance(v, float) for v in dev.values())
+          and abs(dev["operator"] - dev["direct"])
+          <= OP_DEVICE_RTOL * dev["direct"],
+          f"op_dispatch: device ms a batch through the operator within "
+          f"{OP_DEVICE_RTOL} of the direct launches': {dev}")
+    emit(phase="op_dispatch", card=card, batch=BATCH, launches=launches,
+         device_ms_per_batch=dev, wall_ms_per_batch=wall, turns=times,
+         order="direct, operator, operator, direct")
+
+
+def export_images(seed: int = 20) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, 256, (EXPORT_IMAGES, IMG, IMG, 3)).astype(np.uint8)
+
+
+def per_image_equal(got: list, want: list) -> int:
+    return sum(int(torch.equal(g[i], w[i])) for g, w in zip(got, want)
+               for i in range(g.shape[0]))
+
+
+def artifact_vs_live(path: str, live, kname: str) -> dict:
+    """Load the artifact at `path` and run EXPORT_IMAGES images through it
+    (counters zeroed before) and through the live runner `live`: launches,
+    images equal, the artifact's bytes and load seconds."""
+    t0 = time.monotonic()
+    runner, meta = export_lib.load_serving_artifact(path)
+    load_s = time.monotonic() - t0
+    images = export_images()
+    batches = [images[i:i + BATCH] for i in range(0, EXPORT_IMAGES, BATCH)]
+    runner(batches[0])                     # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    got = [runner(b) for b in batches]
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    want = [live(b) for b in batches]
+    zeros = dict.fromkeys(counted_wrappers(), 0)
+    return {"runner": runner, "meta": meta, "load_s": load_s,
+            "launches": launches, "forwards": len(batches),
+            "launches_ok": launches == {**zeros, kname: 6 * len(batches)},
+            "equal": per_image_equal(got, want), "got": got, "want": want,
+            "bytes": os.path.getsize(os.path.join(path,
+                                                  export_lib.MODULE_NAME))}
+
+
+def safe_export_child(out_dir: str) -> int:
+    """`chip_smoke.py --safe-export <dir>`, run by phase `export` with
+    MASKUNET_SAFE_SOFTMAX=1: the safe artifact (K3 in place of K1) against
+    the safe live runner over the same images; prints one JSON line."""
+    path = os.path.join(out_dir, "artifact_safe")
+    export_lib.export_serving_artifact(
+        "ade_semantic", NUM_CLASSES, None, "best", path,
+        compute_dtype="bfloat16", batch_size=BATCH, device="cuda")
+    live, _ = serve.build_model_runner(
+        "ade_semantic", NUM_CLASSES, None, compute_dtype="bfloat16",
+        batch_size=BATCH, device="cuda")
+    res = artifact_vs_live(path, live, "K3")
+    ok = fa._SAFE_SOFTMAX and res["launches_ok"] and \
+        res["equal"] == EXPORT_IMAGES
+    print(json.dumps({"safe": fa._SAFE_SOFTMAX, "launches": res["launches"],
+                      "forwards": res["forwards"], "equal": res["equal"],
+                      "bytes": res["bytes"], "ok": ok}), flush=True)
+    return 0 if ok else 1
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def subprocess_env(**extra) -> dict:
+    return {**os.environ, "PYTHONPATH": ROOT, **extra}
+
+
+def last_json(out: str) -> dict | None:
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    return json.loads(lines[-1]) if lines else None
+
+
+def serve_artifact_over_http(path: str, runner) -> dict:
+    """`python -m maskunet_tpu_torch.serve --artifact <path>` in a
+    subprocess: 4 PNG requests answered with the runner's maps, then a
+    drained exit on SIGTERM."""
+    import signal
+    import urllib.request
+
+    import cv2
+    port = free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "maskunet_tpu_torch.serve", "--artifact",
+         path, "--port", str(port), "--max-wait-ms", "2"],
+        cwd=ROOT, env=subprocess_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    url = f"http://127.0.0.1:{port}"
+    equal, health, err = 0, None, ""
+    t0 = time.monotonic()
+    try:
+        while time.monotonic() - t0 < 240 and proc.poll() is None:
+            try:
+                with urllib.request.urlopen(url + "/healthz",
+                                            timeout=5) as r:
+                    health = json.loads(r.read())
+                break
+            except OSError:
+                time.sleep(0.5)
+        ready_s = time.monotonic() - t0
+        images = export_images(seed=21)[:4]
+        for img in images if health else []:
+            ok, png = cv2.imencode(".png", img[..., ::-1])   # RGB as BGR
+            req = urllib.request.Request(url + "/predict?format=raw",
+                                         data=png.tobytes(), method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                got = np.frombuffer(r.read(), np.uint8).reshape(IMG, IMG)
+            want = runner(np.stack([img] * BATCH))[0].cpu().numpy()
+            equal += int(np.array_equal(got, want))
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            out, err = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+    stopped = last_json(out) or {}
+    return {"health": health, "ready_s": ready_s, "requests": 4,
+            "equal": equal, "returncode": proc.returncode,
+            "stopped": stopped, "stderr_tail": err[-400:]}
+
+
+def phase_export(card: str, work: str) -> dict:
+    """Serving artifacts on the card (phase 21): the ADE model (c_out 150,
+    128x128, batch 8, bf16, the recipe's seeded init) exported and loaded
+    back: over 16 images its maps equal the live runner's exactly, K1
+    launches 6 times a forward through the operator (counters zeroed
+    before); the artifact's bytes, and its ms a batch against the live
+    runner's. In a subprocess with MASKUNET_SAFE_SOFTMAX=1 the same for a
+    safe artifact (K3 6 a forward, equal to the safe live runner); in
+    another, `serve --artifact` answers 4 HTTP requests with the
+    runner's maps and drains on SIGTERM."""
+    safe_proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--safe-export", work],
+        cwd=ROOT, env=subprocess_env(MASKUNET_SAFE_SOFTMAX="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    path = os.path.join(work, "artifact_bf16")
+    t0 = time.monotonic()
+    export_lib.export_serving_artifact(
+        "ade_semantic", NUM_CLASSES, None, "best", path,
+        compute_dtype="bfloat16", batch_size=BATCH, device="cuda")
+    export_s = time.monotonic() - t0
+    live, _ = serve.build_model_runner(
+        "ade_semantic", NUM_CLASSES, None, compute_dtype="bfloat16",
+        batch_size=BATCH, device="cuda")
+    res = artifact_vs_live(path, live, "K1")
+    check(res["launches_ok"], f"export: K1 6 launches a forward of the "
+          f"artifact, no other kernel: {res['launches']}")
+    check(res["equal"] == EXPORT_IMAGES, f"export: the artifact's maps "
+          f"equal the live runner's: {res['equal']}/{EXPORT_IMAGES}")
+    check(res["meta"]["platforms"] == ["cuda"]
+          and res["meta"]["input_shape"] == [BATCH, IMG, IMG, 3],
+          f"export: meta {res['meta']}")
+    http = serve_artifact_over_http(path, res["runner"])
+    check(http["health"] == {"status": "ok", "img_size": IMG,
+                             "num_classes": NUM_CLASSES}
+          and http["equal"] == 4 and http["returncode"] == 0
+          and http["stopped"].get("drained") is True,
+          f"export: serve --artifact answers 4 requests with the runner's "
+          f"maps and drains: {http}")
+    images = export_images()[:BATCH]
+    times = in_turns({"live": lambda: live(images),
+                      "artifact": lambda: res["runner"](images)})
+    try:
+        out, err = safe_proc.communicate(timeout=400)
+    except subprocess.TimeoutExpired:
+        safe_proc.kill()
+        out, err = safe_proc.communicate()
+    safe = last_json(out) or {}
+    zeros = dict.fromkeys(counted_wrappers(), 0)
+    check(safe_proc.returncode == 0 and safe.get("ok") is True
+          and safe.get("safe") is True
+          and safe.get("launches") == {**zeros, "K3": 6 * safe["forwards"]},
+          f"export: the safe artifact launches K3 6 times a forward and "
+          f"equals the safe live runner: {safe} {err[-600:]}")
+    emit(phase="export", card=card, batch=BATCH, images=EXPORT_IMAGES,
+         export_s=export_s, load_s=res["load_s"], bytes=res["bytes"],
+         launches=res["launches"], forwards=res["forwards"],
+         maps_equal_live=res["equal"], meta=res["meta"],
+         ms_per_batch={k: {m: mean_ms(v[m]) for m in v}
+                       for k, v in times.items()},
+         turns=times, safe=safe, http=http)
+    return {"K1": res["launches"]["K1"], "K3": safe.get("launches",
+                                                        {}).get("K3", 0),
+            "bytes": res["bytes"], "live": live}
+
+
+def phase_int8(card: str, work: str, calib_dir: str, live_bf16,
+               bf16_bytes: int) -> dict:
+    """int8 serving on the card (phase 22), the ADE model at c_out 150,
+    128x128, batch 8, bf16: dynamic scales, and static ones calibrated on
+    the fake ADE images of `recipes` (16). On those images each agrees
+    with the bf16 runner's argmax above INT8_AGREE; an image's map is the
+    same with bright and with dark batch-mates (exact); no float
+    conv runs (the conv recorder sees none) and K1 launches 6 times a
+    forward; the int8 artifact (bf16, dynamic) agrees with the live int8
+    runner above INT8_ARTIFACT_AGREE, and the int8 artifact exported in
+    f32 is under INT8_BYTES of the float one in f32 (JAX's bound); the
+    bf16 ratio is printed. ms a batch int8 against bf16, printed."""
+    ds = predict._DirectoryDataset(calib_dir, IMG)
+    images = np.stack([ds[i]["image"] for i in range(len(ds))])
+    batches = [images[i:i + BATCH] for i in range(0, len(images), BATCH)]
+    kw = dict(compute_dtype="bfloat16", batch_size=BATCH, device="cuda")
+    dynamic, _ = serve.build_model_runner("ade_semantic", NUM_CLASSES, None,
+                                          quantize="int8", **kw)
+    calibrated, _ = serve.build_model_runner(
+        "ade_semantic", NUM_CLASSES, None, quantize="int8",
+        calibrate_images=calib_dir, **kw)
+    float_convs = []
+    for runner in (dynamic, calibrated):                 # warm-up
+        runner(batches[0])
+    torch.cuda.synchronize()
+    zero_launches()
+    with layers.recording_conv_inputs(lambda w, x: float_convs.append(
+            tuple(w.shape))):
+        maps = {"dynamic": [dynamic(b) for b in batches],
+                "calibrated": [calibrated(b) for b in batches]}
+        torch.cuda.synchronize()
+    launches = kernel_launches()
+    want = [live_bf16(b) for b in batches]
+    agree = {k: float(np.mean([float((g == w).float().mean())
+                               for g, w in zip(v, want)]))
+             for k, v in maps.items()}
+    zeros = dict.fromkeys(counted_wrappers(), 0)
+    check(not float_convs, f"int8: no float conv ran: {float_convs[:3]}")
+    check(launches == {**zeros, "K1": 6 * 2 * len(batches)},
+          f"int8: K1 6 launches a forward: {launches}")
+    check(all(a > INT8_AGREE for a in agree.values()),
+          f"int8: argmax agreement with bf16 above {INT8_AGREE}: {agree}")
+    img = images[0]
+    bright = np.full_like(img, 255)
+    dark = np.zeros_like(img)
+    invariant = {}
+    for name, runner in (("dynamic", dynamic), ("calibrated", calibrated)):
+        a = runner(np.stack([img] + [bright] * (BATCH - 1)))[0]
+        b = runner(np.stack([img] + [dark] * (BATCH - 1)))[0]
+        invariant[name] = bool(torch.equal(a, b))
+    check(all(invariant.values()), f"int8: an image's map does not depend "
+          f"on its batch-mates: {invariant}")
+
+    art = {}
+    for name, dtype in (("int8_bf16", "bfloat16"), ("int8_f32", "float32"),
+                        ("float_f32", "float32")):
+        path = os.path.join(work, f"artifact_{name}")
+        t0 = time.monotonic()
+        export_lib.export_serving_artifact(
+            "ade_semantic", NUM_CLASSES, None, "best", path,
+            compute_dtype=dtype, batch_size=BATCH, device="cuda",
+            quantize=None if name.startswith("float") else "int8")
+        art[name] = {"path": path, "export_s": time.monotonic() - t0,
+                     "bytes": os.path.getsize(os.path.join(
+                         path, export_lib.MODULE_NAME))}
+    res = artifact_vs_live(art["int8_bf16"]["path"], dynamic, "K1")
+    art_agree = float(np.mean([float((g == w).float().mean())
+                               for g, w in zip(res["got"], res["want"])]))
+    check(res["launches_ok"], f"int8: the int8 artifact launches K1 6 "
+          f"times a forward: {res['launches']}")
+    check(art_agree > INT8_ARTIFACT_AGREE, f"int8: the int8 artifact "
+          f"agrees with the live int8 runner: {art_agree}")
+    ratio_f32 = art["int8_f32"]["bytes"] / art["float_f32"]["bytes"]
+    ratio_bf16 = art["int8_bf16"]["bytes"] / bf16_bytes
+    check(ratio_f32 < INT8_BYTES, f"int8: the int8 artifact under "
+          f"{INT8_BYTES} of the float one (f32): {ratio_f32}")
+    times = in_turns({"bf16": lambda: live_bf16(batches[0]),
+                      "int8": lambda: dynamic(batches[0])})
+    emit(phase="int8", card=card, batch=BATCH, images=len(images),
+         launches=launches, float_convs=len(float_convs),
+         argmax_agreement_with_bf16=agree, agree_limit=INT8_AGREE,
+         batch_composition_invariant=invariant,
+         artifact_launches=res["launches"],
+         artifact_agreement_with_live=art_agree,
+         artifact_maps_equal_live=res["equal"],
+         artifact_bytes={k: v["bytes"] for k, v in art.items()},
+         bf16_artifact_bytes=bf16_bytes, bytes_ratio_f32=ratio_f32,
+         bytes_ratio_vs_bf16=ratio_bf16,
+         export_s={k: v["export_s"] for k, v in art.items()},
+         ms_per_batch={k: {m: mean_ms(v[m]) for m in v}
+                       for k, v in times.items()}, turns=times)
+    return {"K1": launches["K1"] + res["launches"]["K1"]}
+
+
+CLI_KEYS = {
+    "train": {"recipe", "best_loss", "best_iou", "images_per_sec"},
+    "predict": {"written", "out"},
+    "export": {"exported", "bytes"},
+    "import-torch": {"imported", "checkpoint", "attn_output_layout",
+                     "ignored_keys"},
+}
+
+
+def start_cli(*argv) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-m", "maskunet_tpu_torch.cli", *argv], cwd=ROOT,
+        env=subprocess_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def finish(procs: dict, timeout: float = 600) -> dict:
+    """Waits for every process of {name: Popen}; {name: (returncode,
+    stdout, stderr, seconds since the stage began)}."""
+    t0 = time.monotonic()
+    out = {}
+    for name, proc in procs.items():
+        try:
+            o, e = proc.communicate(timeout=max(1.0, timeout - (
+                time.monotonic() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            o, e = proc.communicate()
+        out[name] = (proc.returncode, o, e, time.monotonic() - t0)
+    return out
+
+
+def phase_cli(card: str, roots: dict, work: str,
+              matplotlib: str | None) -> None:
+    """The command line on the card (phase 23), each command a subprocess
+    of `python -m maskunet_tpu_torch.cli` on the fake layouts of
+    `recipes`, in three stages of parallel processes: `recipes`, `train`
+    (ade_semantic, 4 steps; city_instance, 2 steps) and `visualize` (no
+    matplotlib on the card's host: it must fail naming it); then
+    `evaluate` (ade_semantic; city_instance with `--mode instances`),
+    `predict`, `export --quantize int8` and `import-torch` of a
+    `module.`-prefixed .pth this script writes with `torch.save` from the
+    trained ade_semantic state; then `evaluate` of the imported workdir,
+    equal to that of the source state. Each JSON line is parsed and its
+    keys checked."""
+    ade, city = roots["ade20k"], roots["cityscapes"]
+    w_ade, w_city = os.path.join(work, "ade"), os.path.join(work, "city")
+    common = ("--data-root", ade, "--recipe", "ade_semantic")
+    t0 = time.monotonic()
+    a = finish({
+        "recipes": start_cli("recipes"),
+        "train": start_cli("train", *common, "--workdir", w_ade,
+                           "--max-steps", "4", "--log-every", "0"),
+        "train_city": start_cli("train", "--recipe", "city_instance",
+                                "--data-root", city, "--workdir", w_city,
+                                "--max-steps", "2", "--log-every", "0"),
+        "visualize": start_cli("visualize", *common, "--workdir",
+                               os.path.join(work, "viz_w"), "--out",
+                               os.path.join(work, "viz"))})
+    stage_a = time.monotonic() - t0
+    results = {name: (r[0], last_json(r[1])) for name, r in a.items()}
+    lines = a["recipes"][1].splitlines()
+    check(a["recipes"][0] == 0 and len(lines) == 11
+          and lines[0].startswith("ade_instance"),
+          f"cli recipes: {a['recipes'][1][:200]} {a['recipes'][2][-300:]}")
+    for name in ("train", "train_city"):
+        rc, out, err, _ = a[name]
+        line = last_json(out) or {}
+        check(rc == 0 and set(line) == CLI_KEYS["train"]
+              and math.isfinite(line["best_loss"]),
+              f"cli {name}: {line} {err[-600:]}")
+    rc, out, err, _ = a["visualize"]
+    if matplotlib is None:
+        check(rc != 0 and "matplotlib" in err,
+              f"cli visualize: fails naming matplotlib: {rc} {err[-300:]}")
+    else:
+        check(rc == 0 and len((last_json(out) or {}).get("saved", [])) == 2,
+              f"cli visualize: {out[-300:]} {err[-300:]}")
+
+    # the trained state as a reference .pth, DataParallel-prefixed
+    rec = recipes.get("ade_semantic")
+    classes = make_datasets(rec, ade)[2]
+    ts = ckpt_lib.restore_inference(
+        os.path.join(w_ade, f"{rec.checkpoint_name}_latest.msgpack"),
+        train_loop.setup_state(rec, train_loop.model_config(rec, classes),
+                               train_loop.make_optimizer(rec),
+                               device="cuda"))
+    sd = torch_import.export_state_dict(ts.params, ts.model_state)
+    pth = os.path.join(work, "reference.pth")
+    torch.save({f"module.{k}": v for k, v in sd.items()}, pth)
+    del ts
+    w_imp = os.path.join(work, "imported")
+    t0 = time.monotonic()
+    b = finish({
+        "evaluate": start_cli("evaluate", *common, "--workdir", w_ade,
+                              "--tag", "latest", "--attn-output-layout",
+                              "literal_view"),
+        "evaluate_instances": start_cli(
+            "evaluate", "--recipe", "city_instance", "--data-root", city,
+            "--workdir", w_city, "--tag", "latest", "--mode", "instances",
+            "--max-batches", "1"),
+        "predict": start_cli("predict", *common, "--workdir", w_ade, "--tag",
+                             "latest", "--images",
+                             os.path.join(ade, "images", "validation"),
+                             "--out", os.path.join(work, "pred")),
+        "export": start_cli("export", *common, "--workdir", w_ade, "--tag",
+                            "latest", "--out", os.path.join(work, "art8"),
+                            "--quantize", "int8"),
+        "import-torch": start_cli("import-torch", *common, "--workdir",
+                                  w_imp, "--torch-checkpoint", pth)})
+    stage_b = time.monotonic() - t0
+    t0 = time.monotonic()
+    c = finish({"evaluate_imported": start_cli("evaluate", *common,
+                                               "--workdir", w_imp)})
+    stage_c = time.monotonic() - t0
+    for name, r in {**b, **c}.items():
+        results[name] = (r[0], last_json(r[1]))
+        check(r[0] == 0 and results[name][1] is not None,
+              f"cli {name}: rc {r[0]} {r[1][-300:]} {r[2][-600:]}")
+    line = lambda name: results[name][1] or {}
+    for name in ("predict", "export", "import-torch"):
+        check(set(line(name)) == CLI_KEYS[name],
+              f"cli {name}: the JSON keys of JAX's CLI: {line(name)}")
+    source, imported = line("evaluate"), line("evaluate_imported")
+    check({"recipe", "loss", "miou"} <= set(source)
+          and all(math.isfinite(v) for k, v in source.items()
+                  if k != "recipe"),
+          f"cli evaluate: {source}")
+    check(imported == source, f"cli evaluate of the imported .pth equals "
+          f"the source state's: {imported} vs {source}")
+    inst = line("evaluate_instances").get("instances", {})
+    check(sorted(inst, key=int) == [str(q) for q in
+                                    recipes.get("city_instance")
+                                    .eval_max_queries]
+          and all(math.isfinite(v["AP"]) for v in inst.values()),
+          f"cli evaluate --mode instances: {line('evaluate_instances')}")
+    check(line("predict").get("written") == FAKE_VAL,
+          f"cli predict: {line('predict')}")
+    art = os.path.join(work, "art8", export_lib.MODULE_NAME)
+    check(os.path.exists(art)
+          and line("export").get("bytes") == os.path.getsize(art),
+          f"cli export: {line('export')}")
+    check(line("import-torch").get("attn_output_layout") == "literal_view"
+          and line("import-torch").get("ignored_keys") == sum(
+              k.endswith("num_batches_tracked") for k in sd),
+          f"cli import-torch: {line('import-torch')}")
+    emit(phase="cli", card=card, stage_seconds=[stage_a, stage_b, stage_c],
+         returncodes={n: r[0] for n, r in results.items()},
+         lines={n: r[1] for n, r in results.items()},
+         visualize_error=a["visualize"][2][-200:] if matplotlib is None
+         else None)
+
+
 def kernel_entry(name, source, replaces, launches, err, t, **extra) -> dict:
     return {**extra, "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -2133,6 +2702,8 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--safe-export"]:
+        return safe_export_child(sys.argv[2])
     t0 = time.monotonic()
     card = phase_device()
     libs = phase_image_io(card)
@@ -2141,6 +2712,8 @@ def main() -> int:
     kernel_bwd = phase_kernel_bwd()
     serving = phase_serving(card)
     totals = phase_times(card, serving)
+    phase_op_dispatch(card, serving["runner"],
+                      np.stack(serving["images"][:BATCH]))
     del serving
     train = phase_train(card)
     train_totals = phase_train_time(card, train)
@@ -2163,6 +2736,14 @@ def main() -> int:
         recipe_launches, pan_state = phase_recipes(card, roots)
         phase_predict(card, pan_state, roots, libs["matplotlib"])
         del pan_state
+        extras = os.path.join(data_dir, "extras")
+        os.makedirs(extras)
+        exported = phase_export(card, extras)
+        int8 = phase_int8(card, extras,
+                          os.path.join(roots["ade20k"], "images", "training"),
+                          exported.pop("live"), exported["bytes"])
+        phase_cli(card, roots, os.path.join(data_dir, "cli"),
+                  libs["matplotlib"])
         phase_data_rate(card, os.path.join(data_dir, "ade512"))
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
@@ -2194,7 +2775,9 @@ def main() -> int:
                      bodies_bf16=fwd_bodies, launches_loop=loop["K1"],
                      launches_panoptic=panoptic["K1"],
                      launches_instance=instance["K1"],
-                     launches_recipes=recipe_launches["K1"]),
+                     launches_recipes=recipe_launches["K1"],
+                     launches_export=exported["K1"],
+                     launches_int8=int8["K1"]),
         kernel_entry("flash_fwd_nomax_lse", fwd_src,
                      "maskunet_tpu/ops/flash_attention.py:267",
                      train_launches["K2"], kernel_lse["max_abs_err"],
@@ -2206,7 +2789,8 @@ def main() -> int:
         kernel_entry("flash_fwd_online", online_src,
                      "maskunet_tpu/ops/flash_attention.py:111",
                      safe["K3"], kernel_online["max_abs_err"], online_totals,
-                     bodies_bf16=online_bodies),
+                     bodies_bf16=online_bodies,
+                     launches_export_safe=exported["K3"]),
         kernel_entry("flash_bwd", "maskunet_tpu_torch/csrc/flash_bwd.cu",
                      "maskunet_tpu/ops/flash_attention.py:323",
                      train_launches["K4"] + safe["K4"],

@@ -13,11 +13,19 @@ float is first rounded to bf16 (weak typing): `weak_scalar` reproduces that.
 
 Train-mode BatchNorm follows JAX's arithmetic (f32, var = E[x^2] - mean^2)
 in plain ops rather than `F.batch_norm`, whose variance is computed another
-way. The int8 conv belongs to a later slice.
+way.
+
+`conv2d_int8` is JAX's int8 serving conv (the `kernel_q` branch of its
+`conv2d`): per-sample dynamic (or static, calibrated) activation scales,
+an int8 x int8 -> int32 product by im2col and `torch._int_mm`, and an f32
+dequant. `recording_conv_inputs` lets calibration see every float conv's
+input, as JAX's calibration monkeypatches its `conv2d`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 
 import numpy as np
@@ -39,14 +47,100 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+# calibration's recorder (`recording_conv_inputs`): None outside it
+_CONV_RECORDER: contextvars.ContextVar = contextvars.ContextVar(
+    "conv_recorder", default=None)
+
+
+@contextlib.contextmanager
+def recording_conv_inputs(record):
+    """While the block runs, every `conv2d` first calls `record(weight, x)`
+    (the counterpart of JAX's calibration monkeypatching its `conv2d`)."""
+    token = _CONV_RECORDER.set(record)
+    try:
+        yield
+    finally:
+        _CONV_RECORDER.reset(token)
+
+
 def conv2d(weight: torch.Tensor, bias: torch.Tensor | None,
            x: torch.Tensor) -> torch.Tensor:
     """Stride-1 'SAME' conv of NHWC `x` with an OIHW kernel (odd size),
     weights cast to x's dtype."""
+    record = _CONV_RECORDER.get()
+    if record is not None:
+        record(weight, x)
     pad = weight.shape[-1] // 2
     b = None if bias is None else bias.to(x.dtype)
     y = F.conv2d(_nchw(x), weight.to(x.dtype), b, padding=pad)
     return _nhwc(y)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def conv2d_int8_accumulate(xq: torch.Tensor,
+                           kernel_q: torch.Tensor) -> torch.Tensor:
+    """The int32 sums of a stride-1 'SAME' conv of NHWC int8 `xq` with an
+    OIHW int8 kernel (odd size): im2col by shifted slices of the padded
+    input ((kh, kw, C) order along K), then one int8 x int8 -> int32
+    `torch._int_mm`, on the CPU and on the card alike. The card's
+    `_int_mm` takes K and N in multiples of 8 and more than 16 rows, and
+    cuBLASLt refuses some shapes that meet that (N = 152 at 131,072 rows
+    and K = 64: the ADE head, c_out 150, at batch 8), so K is padded with
+    zeros to a multiple of 8 (the first conv has K = 27), the output
+    channels to a multiple of 32 (150 -> 160, which it takes) and the
+    rows to at least 32; zeros add nothing, so the sums are exact.
+    Returns [B, H, W, O] int32."""
+    b, h, w, c = xq.shape
+    o, _, kh, kw = kernel_q.shape
+    if kh == kw == 1:
+        cols = xq.reshape(b * h * w, c)
+    else:
+        xp = F.pad(xq, (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
+        cols = torch.cat([xp[:, i:i + h, j:j + w] for i in range(kh)
+                          for j in range(kw)], dim=-1)
+        cols = cols.reshape(b * h * w, kh * kw * c)
+    m, k = cols.shape
+    kp, op, mp = _round_up(k, 8), _round_up(o, 32), max(m, 32)
+    cols = F.pad(cols, (0, kp - k, 0, mp - m))
+    wmat = F.pad(kernel_q.permute(0, 2, 3, 1).reshape(o, k),
+                 (0, kp - k, 0, op - o))
+    # B as the transpose of a row-major [N, K]: the int8 GEMM's TN layout
+    acc = torch._int_mm(cols, wmat.t())
+    return acc[:m, :o].reshape(b, h, w, o)
+
+
+def div_127(t: torch.Tensor) -> torch.Tensor:
+    """t / 127 by a true division on every device: the card divides by a
+    Python scalar through its reciprocal, which rounds otherwise than the
+    CPU's division (and XLA's) in the last bit."""
+    return t / torch.full((), 127.0, dtype=t.dtype, device=t.device)
+
+
+def conv2d_int8(kernel_q: torch.Tensor, w_scale: torch.Tensor,
+                bias: torch.Tensor | None, x: torch.Tensor,
+                a_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """JAX's int8 serving conv (maskunet_tpu/core/layers.py:62-87): `x`
+    quantized with a per-sample scale a = max(max|x| over H, W, C / 127,
+    1e-12) (per sample, not per batch, so an image's prediction does not
+    depend on its batch-mates) or the static calibrated `a_scale`, as
+    clip(round(x / a), -127, 127) (round half to even, as `jnp.round`);
+    the int32 conv sums (`conv2d_int8_accumulate`) dequantized in f32 as
+    acc * (a * w_scale[c]), plus the bias in f32, cast to x's dtype. Never
+    a float conv."""
+    xf = x.float()
+    if a_scale is None:
+        a = torch.clamp(div_127(xf.abs().amax(dim=(1, 2, 3), keepdim=True)),
+                        min=1e-12)
+    else:
+        a = a_scale
+    xq = torch.clamp(torch.round(xf / a), -127, 127).to(torch.int8)
+    y = conv2d_int8_accumulate(xq, kernel_q).float() * (a * w_scale)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
 
 
 def linear(weight: torch.Tensor, bias: torch.Tensor | None,

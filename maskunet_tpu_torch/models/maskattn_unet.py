@@ -14,8 +14,10 @@ Feature maps are NHWC. The attention layers always take the flash path
 (`attn_impl` 'auto' resolves to 'flash'): the kernels on the card, their
 plain versions on the CPU. `train=True` runs batch-statistics BatchNorm
 (returning the new running stats), dropout at the two decoder sites and,
-under autograd, the flash backward. Meshes and int8 serving belong to
-later slices and raise here.
+under autograd, the flash backward. `quantize_params_for_inference` turns
+the folded convs into int8 (`layers.conv2d_int8`), after an optional
+`calibrate_activation_scales`. Meshes belong to a later slice and raise
+here.
 """
 
 from __future__ import annotations
@@ -186,6 +188,12 @@ def param_count(params: dict) -> int:
 # ---------------------------------------------------------------------------
 
 def _conv(p: dict, name: str, x: torch.Tensor) -> torch.Tensor:
+    """The conv `name`: int8 where `quantize_params_for_inference` left
+    its `kernel_q`, float otherwise."""
+    if f"{name}.kernel_q" in p:
+        return layers.conv2d_int8(p[f"{name}.kernel_q"], p[f"{name}.w_scale"],
+                                  p.get(f"{name}.bias"), x,
+                                  a_scale=p.get(f"{name}.a_scale"))
     return layers.conv2d(p[f"{name}.weight"], p.get(f"{name}.bias"), x)
 
 
@@ -429,19 +437,88 @@ def fold_bn_for_inference(params: dict, state: dict,
 def cast_params_for_inference(params: dict,
                               dtype: torch.dtype = torch.bfloat16) -> dict:
     """Conv and linear weights and biases pre-cast to the compute dtype;
-    norm affines stay f32 (they enter f32 statistics)."""
-    def matmul_module(key: str) -> bool:
-        w = params.get(key.rsplit(".", 1)[0] + ".weight")
-        return w is not None and w.dim() in (2, 4)
+    norm affines stay f32 (they enter f32 statistics). An int8 conv's
+    `kernel_q`, `w_scale` and `a_scale` stay as they are and its bias is
+    cast, as JAX casts every `kernel` and `bias` leaf."""
+    def cast(key: str) -> bool:
+        prefix, leaf = key.rsplit(".", 1)
+        w = params.get(f"{prefix}.weight", params.get(f"{prefix}.kernel_q"))
+        return leaf in ("weight", "bias") and w is not None \
+            and w.dim() in (2, 4)
 
-    return {k: v.to(dtype) if matmul_module(k) else v
-            for k, v in params.items()}
+    return {k: v.to(dtype) if cast(k) else v for k, v in params.items()}
+
+
+def _conv_names(params: dict) -> list[str]:
+    """The prefix of every 4-D conv weight of a flat parameter dict."""
+    return [k[:-len(".weight")] for k, v in params.items()
+            if k.endswith(".weight") and v.dim() == 4]
 
 
 def calibrate_activation_scales(params: dict, forward, batches) -> dict:
-    raise NotImplementedError("int8 calibration: serving-extras slice")
+    """Per-conv input max|x| over calibration batches, from the folded
+    float model (maskunet_tpu/models/maskattn_unet.py:522-600).
+
+    `forward(params, x)` runs the model (e.g. `apply(..., folded=True)`)
+    on each batch of `batches`, without gradients; while it runs,
+    `layers.recording_conv_inputs` shows every conv's input to a recorder
+    that keeps the running max on the device, keyed by the conv's name
+    (the state_dict prefix, e.g. "initial_conv.conv_block.0", which
+    `utils.jax_weights.mapping` relates to JAX's "initial/conv1"). One
+    host sync at the end. Returns {name: max}, for
+    `quantize_params_for_inference(act_scales=...)`."""
+    names = {id(params[f"{n}.weight"]): n for n in _conv_names(params)}
+    records: dict[str, torch.Tensor] = {}
+
+    def record(weight: torch.Tensor, x: torch.Tensor) -> None:
+        name = names.get(id(weight))
+        if name is not None:
+            m = x.float().abs().amax()
+            records[name] = (m if name not in records
+                             else torch.maximum(records[name], m))
+
+    with torch.no_grad(), layers.recording_conv_inputs(record):
+        for b in batches:
+            forward(params, b)
+    if not records:
+        raise RuntimeError(
+            "calibration recorded no conv activations — `forward` must "
+            "call the model with these `params` and must execute at least "
+            "one conv")
+    keys = list(records)
+    values = torch.stack([records[k] for k in keys]).tolist()
+    return dict(zip(keys, values))
 
 
 def quantize_params_for_inference(params: dict,
                                   act_scales: dict | None = None) -> dict:
-    raise NotImplementedError("int8 quantization: serving-extras slice")
+    """Post-training int8 quantization of the folded conv weights
+    (maskunet_tpu/models/maskattn_unet.py:602-654): for every 4-D conv
+    `name`, `name.weight` [O, I, kh, kw] becomes `name.kernel_q` =
+    clip(round(W / w_scale), -127, 127) in int8 with per-output-channel
+    `name.w_scale` = max(max|W[c]|, 1e-12) / 127 (f32); `act_scales` (from
+    `calibrate_activation_scales`) adds the static `name.a_scale` =
+    max(act, 1e-12) / 127, else `layers.conv2d_int8` scales each sample
+    dynamically. Linears stay as they are (they feed the flash kernel in
+    the compute dtype). Apply to `fold_bn_for_inference`'s output; the
+    class maps are not bit-equal to the float model's."""
+    out = dict(params)
+    for name in _conv_names(params):
+        k = out.pop(f"{name}.weight").float()
+        scale = layers.div_127(torch.clamp(k.abs().amax(dim=(1, 2, 3)),
+                                           min=1e-12))
+        out[f"{name}.kernel_q"] = torch.clamp(
+            torch.round(k / scale[:, None, None, None]), -127, 127
+        ).to(torch.int8)
+        out[f"{name}.w_scale"] = scale
+        if act_scales is not None:
+            if name not in act_scales:
+                raise ValueError(
+                    f"no calibrated activation scale for conv {name!r} — "
+                    "it was not exercised during calibration (the "
+                    "calibration forward must run every conv the serving "
+                    "config will execute)")
+            out[f"{name}.a_scale"] = torch.tensor(
+                max(act_scales[name], 1e-12) / 127.0, dtype=torch.float32,
+                device=k.device)
+    return out

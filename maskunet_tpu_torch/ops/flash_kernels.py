@@ -23,6 +23,15 @@ The wrappers of K5-K7 sit in `maskunet_tpu_torch/tools/`.
 A tensor on the CPU goes to the wrapper's plain version (`*_reference`,
 the same math in plain PyTorch); a CUDA tensor always launches the kernel
 (or raises). Each wrapper counts its launches in `<wrapper>.launches`.
+
+K1 and K3, the serving forwards, are also the PyTorch operators
+`maskunet::flash_fwd_nomax` and `maskunet::flash_fwd_online` (registered
+at import, with a shape-only fake for tracing), so that `torch.export`
+keeps them in an exported program (`maskunet_tpu_torch.export`): the
+ctypes launch on `data_ptr()` cannot be traced. The operator's body is the
+wrapper's (plain version on the CPU, launch on the card); it allocates its
+outputs and writes no input. Eager calls skip the dispatcher and run the
+body directly.
 """
 
 from __future__ import annotations
@@ -345,12 +354,9 @@ def _check(q, k, v, bias) -> None:
         _check_layout(name, t, q.device)
 
 
-def flash_fwd_nomax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias: torch.Tensor, scale: float,
-                    use_valid: bool = True) -> torch.Tensor:
-    """K1: masked attention forward without online max (see the module
-    docstring). CPU tensors run the plain version; CUDA tensors launch the
-    kernel."""
+def _flash_fwd_nomax_impl(q, k, v, bias, scale, use_valid):
+    """The body of K1's operator: the plain version for a CPU tensor, the
+    launch for a CUDA tensor."""
     if not _on_card(q):
         return flash_fwd_nomax_reference(q, k, v, bias, scale, use_valid)
     _check(q, k, v, bias)
@@ -361,6 +367,33 @@ def flash_fwd_nomax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(q.dtype == torch.bfloat16), int(use_valid),
         weak_scalar(scale * _LOG2E, q.dtype))
     return o
+
+
+@torch.library.custom_op("maskunet::flash_fwd_nomax", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _flash_fwd_nomax_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: torch.Tensor, scale: float,
+                        use_valid: bool) -> torch.Tensor:
+    return _flash_fwd_nomax_impl(q, k, v, bias, scale, use_valid)
+
+
+@_flash_fwd_nomax_op.register_fake
+def _(q, k, v, bias, scale, use_valid):
+    return torch.empty_like(q)
+
+
+def flash_fwd_nomax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: torch.Tensor, scale: float,
+                    use_valid: bool = True) -> torch.Tensor:
+    """K1: masked attention forward without online max (see the module
+    docstring). CPU tensors run the plain version; CUDA tensors launch
+    the kernel. Under `torch.export` (or `torch.compile`) the call is the
+    operator `maskunet::flash_fwd_nomax`, which the traced graph keeps;
+    eager calls its body directly, without the dispatcher's host time."""
+    if torch.compiler.is_compiling():
+        return _flash_fwd_nomax_op(q, k, v, bias, float(scale),
+                                   bool(use_valid))
+    return _flash_fwd_nomax_impl(q, k, v, bias, scale, use_valid)
 
 
 flash_fwd_nomax.launches = 0
@@ -390,12 +423,9 @@ def flash_fwd_nomax_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_fwd_nomax_lse.launches = 0
 
 
-def flash_fwd_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     bias: torch.Tensor, scale: float, use_valid: bool = True
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3: masked attention forward with an online max; returns (o, lse
-    [B, 1, Lq] f32 = m + log2(max(l, 1e-30))). CPU tensors run the plain
-    version; CUDA tensors launch the kernel."""
+def _flash_fwd_online_impl(q, k, v, bias, scale, use_valid):
+    """The body of K3's operator: the plain version for a CPU tensor, the
+    launch for a CUDA tensor."""
     if not _on_card(q):
         return flash_fwd_online_reference(q, k, v, bias, scale, use_valid)
     _check(q, k, v, bias)
@@ -407,6 +437,33 @@ def flash_fwd_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(q.dtype == torch.bfloat16), int(use_valid),
         weak_scalar(scale * _LOG2E, q.dtype))
     return o, lse
+
+
+@torch.library.custom_op("maskunet::flash_fwd_online", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _flash_fwd_online_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias: torch.Tensor, scale: float, use_valid: bool
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _flash_fwd_online_impl(q, k, v, bias, scale, use_valid)
+
+
+@_flash_fwd_online_op.register_fake
+def _(q, k, v, bias, scale, use_valid):
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[0], 1, q.shape[1], dtype=torch.float32))
+
+
+def flash_fwd_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor, scale: float, use_valid: bool = True
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3: masked attention forward with an online max; returns (o, lse
+    [B, 1, Lq] f32 = m + log2(max(l, 1e-30))). CPU tensors run the plain
+    version; CUDA tensors launch the kernel. Traced, the call is the
+    operator `maskunet::flash_fwd_online`, as for `flash_fwd_nomax`."""
+    if torch.compiler.is_compiling():
+        return _flash_fwd_online_op(q, k, v, bias, float(scale),
+                                    bool(use_valid))
+    return _flash_fwd_online_impl(q, k, v, bias, scale, use_valid)
 
 
 flash_fwd_online.launches = 0

@@ -16,8 +16,11 @@ The model is `{workdir}/{checkpoint_name}_{tag}.msgpack` where there is
 one, written by the JAX package or by the port (the same format), and a
 fresh init seeded with the recipe's seed otherwise, as the JAX server does.
 The class count is `--num-classes`, or the recipe's dataset's (read under
-`--data-root`, as the JAX server does). Exported artifacts, int8 and
-multi-card serving come in later slices.
+`--data-root`, as the JAX server does). `--quantize int8` serves int8 convs
+(`--calibrate-images <dir>`: static activation scales from those images);
+`--artifact <dir>` serves an exported artifact (`maskunet_tpu_torch.export`)
+in place of the checkpoint. Multi-card serving (`--n-data`) belongs to the
+parallel slice and is refused.
 """
 
 from __future__ import annotations
@@ -198,6 +201,18 @@ def model_config(recipe: recipes_lib.Recipe, num_classes: int, *,
         attn_output_layout=recipe.attn_output_layout)
 
 
+def classify(infer_params: dict, masks: tuple | None, plans: tuple | None,
+             cfg: mu.MaskAttnUNetConfig,
+             images: torch.Tensor) -> torch.Tensor:
+    """Class maps uint8 [B,H,W] of uint8 images [B,H,W,3] already on the
+    device: the folded forward on `infer_params` with the serving masks
+    and their plans, its argmax. The live forward and the exported
+    artifact both run it."""
+    out, _ = mu.apply(infer_params, None, images.float() / 255.0, cfg=cfg,
+                      masks=masks, folded=True, mask_plans=plans)
+    return out.semantic.argmax(dim=-1).to(torch.uint8)
+
+
 def make_forward(infer_params: dict, masks: tuple | None, plans: tuple | None,
                  cfg: mu.MaskAttnUNetConfig, device: str | torch.device):
     """forward(images uint8 [B,H,W,3]) -> class maps uint8 [B,H,W] on
@@ -207,10 +222,8 @@ def make_forward(infer_params: dict, masks: tuple | None, plans: tuple | None,
 
     @torch.no_grad()
     def forward(images) -> torch.Tensor:
-        x = torch.as_tensor(images).to(device).float() / 255.0
-        out, _ = mu.apply(infer_params, None, x, cfg=cfg, masks=masks,
-                          folded=True, mask_plans=plans)
-        return out.semantic.argmax(dim=-1).to(torch.uint8)
+        return classify(infer_params, masks, plans, cfg,
+                        torch.as_tensor(images).to(device))
 
     return forward
 
@@ -219,6 +232,8 @@ def build_inference_fn(recipe, num_classes: int, workdir: str | None = None,
                        tag: str = "best", *, attn_impl: str = "auto",
                        compute_dtype: str = "bfloat16",
                        batch_size: int | None = None,
+                       quantize: str | None = None,
+                       calibrate_images: str | None = None,
                        device: str | torch.device = "cuda"):
     """The folded serving forward and its operands: returns
     ``(forward, infer_params, masks, cfg)`` with ``forward(x_uint8)`` the
@@ -226,9 +241,20 @@ def build_inference_fn(recipe, num_classes: int, workdir: str | None = None,
     `{checkpoint_name}_{tag}.msgpack` in `workdir` where there is one (the
     JAX package's or the port's), else the recipe's seeded init. Masks (row
     0 broadcast over the batch, so an image scores the same in every slot)
-    and their compaction plans are baked in as one pair."""
+    and their compaction plans are baked in as one pair. Shared with the
+    exporter (`maskunet_tpu_torch.export`), so both serve the same
+    computation.
+
+    `quantize="int8"`: int8 convs (`mu.quantize_params_for_inference`);
+    `calibrate_images`, with it: a directory of sample images whose
+    per-conv activation maxima become static scales (every image counts;
+    the ragged tail batch is padded by repetition, which adds no maximum)."""
     if isinstance(recipe, str):
         recipe = recipes_lib.get(recipe)
+    if quantize is not None and quantize != "int8":
+        raise ValueError(f"unknown quantize mode {quantize!r}")
+    if calibrate_images and quantize is None:
+        raise ValueError("--calibrate-images requires --quantize int8")
     dev = resolve_device(device)
     exact_f32()
     cfg = model_config(recipe, num_classes, attn_impl=attn_impl,
@@ -243,13 +269,38 @@ def build_inference_fn(recipe, num_classes: int, workdir: str | None = None,
     # so an image scores the same in every slot and at any batch size
     batch = batch_size or recipe.batch_size
     masks = tuple(m[:1].expand(batch, -1).contiguous() for m in ts.masks)
+    plans = mu.precompute_mask_plans(masks)
     with torch.no_grad():
         infer_params = mu.fold_bn_for_inference(ts.params, ts.model_state,
                                                 cfg)
+    infer_params = {k: v.detach().to(dev) for k, v in infer_params.items()}
+    if quantize == "int8":
+        act_scales = None
+        if calibrate_images:
+            from maskunet_tpu_torch.tasks.predict import _DirectoryDataset
+            cal_ds = _DirectoryDataset(calibrate_images, cfg.img_size)
+            imgs = np.stack([cal_ds[i]["image"] for i in range(len(cal_ds))])
+            chunks = []
+            for i in range(0, len(imgs), batch):
+                c = imgs[i:i + batch]
+                if len(c) < batch:
+                    c = np.concatenate(
+                        [c, np.repeat(c[-1:], batch - len(c), axis=0)])
+                chunks.append(torch.from_numpy(c).to(dev))
+            print(json.dumps({"calibration_images": len(imgs),
+                              "calibration_batches": len(chunks)}),
+                  flush=True)
+
+            def forward_float(p, chunk):
+                mu.apply(p, None, chunk.float() / 255.0, cfg=cfg,
+                         masks=masks, folded=True, mask_plans=plans)
+
+            act_scales = mu.calibrate_activation_scales(
+                infer_params, forward_float, chunks)
+        infer_params = mu.quantize_params_for_inference(
+            infer_params, act_scales=act_scales)
     if compute_dtype == "bfloat16":
         infer_params = mu.cast_params_for_inference(infer_params)
-    infer_params = {k: v.to(dev) for k, v in infer_params.items()}
-    plans = mu.precompute_mask_plans(masks)
     forward = make_forward(infer_params, masks, plans, cfg, dev)
     return forward, infer_params, masks, cfg
 
@@ -258,12 +309,15 @@ def build_model_runner(recipe, num_classes: int, workdir: str | None = None,
                        tag: str = "best", *, attn_impl: str = "auto",
                        compute_dtype: str = "bfloat16",
                        batch_size: int | None = None,
+                       quantize: str | None = None,
+                       calibrate_images: str | None = None,
                        device: str | torch.device = "cuda"):
     """Returns (runner(images_uint8 [B,H,W,3]) -> class maps, img_size).
     The runner returns the device tensor without waiting for it."""
     forward, _, _, cfg = build_inference_fn(
         recipe, num_classes, workdir, tag, attn_impl=attn_impl,
-        compute_dtype=compute_dtype, batch_size=batch_size, device=device)
+        compute_dtype=compute_dtype, batch_size=batch_size,
+        quantize=quantize, calibrate_images=calibrate_images, device=device)
     return forward, cfg.img_size
 
 
@@ -352,7 +406,11 @@ def main(argv=None) -> int:
     import signal
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--recipe", required=True)
+    ap.add_argument("--recipe")
+    ap.add_argument("--artifact", default=None,
+                    help="serve an exported artifact directory "
+                         "(maskunet_tpu_torch.export) instead of building "
+                         "the model from a checkpoint")
     ap.add_argument("--workdir", default="runs")
     ap.add_argument("--tag", default="best")
     ap.add_argument("--data-root", default=None)
@@ -370,30 +428,68 @@ def main(argv=None) -> int:
                     help="max seconds to drain in-flight batches on "
                          "SIGTERM/SIGINT before exiting")
     ap.add_argument("--compute-dtype", default="bfloat16")
+    ap.add_argument("--quantize", default=None, choices=["int8"],
+                    help="int8-quantize the conv weights (the class maps "
+                         "are not bit-equal to the float model's)")
+    ap.add_argument("--calibrate-images", default=None,
+                    help="with --quantize int8: directory of sample "
+                         "images for static activation scales instead of "
+                         "per-sample dynamic ones")
+    ap.add_argument("--n-data", type=int, default=None,
+                    help="data-parallel serving over N cards: belongs to "
+                         "the parallel slice, refused here")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
-                         "versions")
+                         "versions (an artifact runs where it was "
+                         "exported)")
     args = ap.parse_args(argv)
 
-    recipe = recipes_lib.get(args.recipe)
-    # reference-imported checkpoints must serve with the attention layout
-    # their weights encode (the import records it)
-    meta = ckpt_lib.read_import_meta(args.workdir, recipe.checkpoint_name)
-    layout = (meta or {}).get("attn_output_layout", "transpose")
-    if layout != recipe.attn_output_layout:
-        recipe = dataclasses.replace(recipe, attn_output_layout=layout)
-        print(f"attention-output layout: {layout} (from import sidecar)",
-              flush=True)
-    if args.num_classes is not None:
-        num_classes = args.num_classes
+    if args.n_data is not None:
+        ap.error("--n-data (data-parallel serving) belongs to the parallel "
+                 "slice of the port, which is not ported yet")
+    if args.artifact:
+        # an artifact is a frozen computation: its batch, classes and
+        # quantization were fixed at export time
+        for value, name in ((args.quantize, "--quantize"),
+                            (args.calibrate_images, "--calibrate-images"),
+                            (args.batch_size, "--batch-size"),
+                            (args.num_classes, "--num-classes")):
+            if value is not None:
+                ap.error(f"{name} cannot be combined with --artifact "
+                         "(it was fixed at export time)")
+        from maskunet_tpu_torch import export as export_lib
+        runner, meta = export_lib.load_serving_artifact(args.artifact)
+        num_classes = meta["num_classes"]
+        img_size = meta["img_size"]
+        batch = meta["batch_size"]
+        served = meta.get("recipe", args.artifact)
+        device = meta["platforms"][0]
     else:
-        from maskunet_tpu_torch.tasks.datasets import make_datasets
-        _, _, num_classes = make_datasets(recipe, args.data_root)
-    batch = args.batch_size or recipe.batch_size
-    runner, img_size = build_model_runner(
-        recipe, num_classes, args.workdir, args.tag,
-        compute_dtype=args.compute_dtype, batch_size=batch,
-        device=args.device)
+        if not args.recipe:
+            ap.error("--recipe is required unless --artifact is given")
+        recipe = recipes_lib.get(args.recipe)
+        # reference-imported checkpoints must serve with the attention
+        # layout their weights encode (the import records it)
+        meta = ckpt_lib.read_import_meta(args.workdir,
+                                         recipe.checkpoint_name)
+        layout = (meta or {}).get("attn_output_layout", "transpose")
+        if layout != recipe.attn_output_layout:
+            recipe = dataclasses.replace(recipe, attn_output_layout=layout)
+            print(f"attention-output layout: {layout} (from import "
+                  "sidecar)", flush=True)
+        if args.num_classes is not None:
+            num_classes = args.num_classes
+        else:
+            from maskunet_tpu_torch.tasks.datasets import make_datasets
+            _, _, num_classes = make_datasets(recipe, args.data_root)
+        batch = args.batch_size or recipe.batch_size
+        runner, img_size = build_model_runner(
+            recipe, num_classes, args.workdir, args.tag,
+            compute_dtype=args.compute_dtype, batch_size=batch,
+            quantize=args.quantize, calibrate_images=args.calibrate_images,
+            device=args.device)
+        served = args.recipe
+        device = args.device
     # warm up (kernel build, cuDNN plans) before accepting traffic
     _to_numpy(runner(np.zeros((batch, img_size, img_size, 3), np.uint8)))
     batcher = _Batcher(runner, batch, args.max_wait_ms,
@@ -435,13 +531,13 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGTERM, _term)
     signal.signal(signal.SIGINT, _term)
 
-    print(json.dumps({"serving": args.recipe, "port": args.port,
+    print(json.dumps({"serving": served, "port": args.port,
                       "batch_size": batch, "img_size": img_size,
-                      "device": args.device}),
+                      "device": device}),
           flush=True)
     server.serve_forever()
     server.server_close()
-    print(json.dumps({"stopped": args.recipe,
+    print(json.dumps({"stopped": served,
                       "drained": batcher.pending() == 0}), flush=True)
     return 0
 

@@ -42,10 +42,13 @@ from maskunet_tpu_torch.train import loop as loop_lib
 from maskunet_tpu_torch.train import step as step_lib
 
 
-def _eval_dataset(recipe: Recipe, data_root: str | None):
-    """Returns (validation dataset, num_classes)."""
-    _, val_ds, num_classes = make_datasets(recipe, data_root)
-    return val_ds, num_classes
+def _eval_dataset(recipe: Recipe, data_root: str | None,
+                  split: str = "val"):
+    """Returns (dataset, num_classes) for evaluation. `split='train'`
+    reproduces the reference's quirk of evaluating Cityscapes instances on
+    the train loader (city_instance.py:510)."""
+    train_ds, val_ds, num_classes = make_datasets(recipe, data_root)
+    return (train_ds if split == "train" else val_ds), num_classes
 
 
 def _iter_eval(recipe: Recipe, ds, num_classes: int, ts, *,
@@ -87,17 +90,24 @@ def _iter_eval(recipe: Recipe, ds, num_classes: int, ts, *,
             return
 
 
-def _ragged_coco_gt(recipe: Recipe, data_root: str):
+def _ragged_coco_gt(recipe: Recipe, data_root: str, split: str):
     """Ragged ground-truth twin for the coco_instance recipe: real
-    per-annotation masks + category ids of the validation split (the
-    training target is the reference's summed-mask map, whose values are
-    overlap counts — wrong as evaluation gt; the reference's own final
-    eval is broken here, coco_instance.py:386-413). Returns a function of
-    the dataset index."""
-    ds = coco_data.COCOInstanceDataset(
-        os.path.join(data_root, "annotations", "instances_val2017.json"),
-        os.path.join(data_root, "val2017"), img_size=recipe.img_size,
-        summed_target=False)
+    per-annotation masks + category ids of `split` (the training target
+    is the reference's summed-mask map, whose values are overlap counts —
+    wrong as evaluation gt; the reference's own final eval is broken
+    here, coco_instance.py:386-413). Returns a function of the dataset
+    index."""
+    ann = os.path.join(data_root, "annotations")
+    if split == "train":
+        ds = coco_data.COCOInstanceDataset(
+            os.path.join(ann, "instances_train2017.json"),
+            os.path.join(data_root, "train_subset"),
+            img_size=recipe.img_size, summed_target=False)
+    else:
+        ds = coco_data.COCOInstanceDataset(
+            os.path.join(ann, "instances_val2017.json"),
+            os.path.join(data_root, "val2017"), img_size=recipe.img_size,
+            summed_target=False)
 
     def gt_for(index: int) -> list[dict]:
         ex = ds[index]
@@ -125,6 +135,7 @@ def evaluate_instances(recipe: Recipe, data_root: str | None, ts, *,
                        max_batches: int | None = None,
                        attn_impl: str = "auto",
                        compute_dtype: str = "float32",
+                       split: str = "val",
                        dataset: tuple | None = None,
                        device: str | torch.device = "cuda"
                        ) -> dict[int, dict]:
@@ -132,8 +143,11 @@ def evaluate_instances(recipe: Recipe, data_root: str | None, ts, *,
     (ade_instance.py:451-457: 50/100/150/200; city_instance.py:510:
     30/50/70/100). Returns {max_queries: summarize() stats}.
 
-    `dataset`: optional prebuilt (ds, num_classes) — the training loop
-    passes its cached val set so in-training eval skips reconstruction.
+    `split`: 'val', or 'train' for the reference's Cityscapes quirk (the
+    train split, city_instance.py:510; `cli evaluate --split`).
+    `dataset`: optional prebuilt (ds, num_classes) of the validation split
+    — the training loop passes its cached val set so in-training eval
+    skips reconstruction.
 
     Predicted instances come from the DBSCAN of the embeddings when the
     recipe has an embedding head, else from connected components. The
@@ -145,11 +159,11 @@ def evaluate_instances(recipe: Recipe, data_root: str | None, ts, *,
     class_agnostic = recipe.dataset == "coco" and recipe.task == "instance"
     ragged_gt = None
     if class_agnostic and data_root is not None:
-        ragged_gt = _ragged_coco_gt(recipe, data_root)
-    if dataset is not None:
+        ragged_gt = _ragged_coco_gt(recipe, data_root, split)
+    if dataset is not None and split == "val":
         ds, num_classes = dataset
     else:
-        ds, num_classes = _eval_dataset(recipe, data_root)
+        ds, num_classes = _eval_dataset(recipe, data_root, split)
     gts: list[dict] = []
     dts: list[dict] = []
     for indices, ids, host in _iter_eval(

@@ -177,3 +177,42 @@ def test_coco_instance_ground_truth_waits_for_the_data_slice():
         with pytest.raises(FileNotFoundError):
             module.evaluate_instances(recipes_mod.get("coco_instance"),
                                       "/nonexistent", None, **kw)
+
+
+def test_instances_on_the_train_split_match_jax(monkeypatch):
+    """`split="train"` (`cli evaluate --split train`, the reference's
+    city_instance quirk): both packages evaluate the training split (64
+    examples here, not the 16 of validation), with the same AP on the
+    same batches."""
+    recipe = dataclasses.replace(trecipes.get("city_instance"), batch_size=6,
+                                 **SMALL)
+    jrecipe = dataclasses.replace(jrecipes.get("city_instance"),
+                                  batch_size=6, **SMALL)
+    train_ds, val_ds, nc = tdatasets.make_datasets(recipe, None)
+    assert (len(train_ds), len(val_ds)) == (64, 16)
+    sizes = {}
+    inner = tev._iter_eval
+
+    def recording(recipe, ds, *args, **kw):
+        sizes["port"] = len(ds)
+        yield from inner(recipe, ds, *args, **kw)
+
+    monkeypatch.setattr(tev, "_iter_eval", recording)
+    records = _recording(monkeypatch)
+    cfg = tloop.model_config(recipe, nc)
+    ts = tloop.setup_state(recipe, cfg, tloop.make_optimizer(recipe),
+                           device="cpu")
+    got = tev.evaluate_instances(recipe, None, ts, max_batches=2,
+                                 split="train", device="cpu")
+    _replay(monkeypatch, records)
+    replay = jev._iter_eval
+
+    def sized(recipe, ds, *args, **kw):
+        sizes["jax"] = len(ds)
+        yield from replay(recipe, ds, *args, **kw)
+
+    monkeypatch.setattr(jev, "_iter_eval", sized)
+    want = jev.evaluate_instances(jrecipe, None, None, max_batches=2,
+                                  split="train")
+    assert sizes == {"port": 64, "jax": 64} and len(records) == 2
+    assert got == want

@@ -182,8 +182,10 @@ def test_bf16_folded_cast_matches_jax(golden_setup):
 
 
 def test_later_slices_raise():
-    """Meshes and int8 serving still raise; train mode (with or without
-    remat) now runs and returns the new running stats of every BN."""
+    """Meshes still raise (the parallel slice); train mode (with or without
+    remat) now runs and returns the new running stats of every BN, and
+    int8 serving (the serving-extras slice) quantizes every conv, its
+    calibration refusing a run that recorded nothing."""
     cfg = tmu.MaskAttnUNetConfig(c_out=4, img_size=16)
     params, state = tmu.init(torch.Generator().manual_seed(0), cfg)
     x = torch.zeros(1, 16, 16, 3)
@@ -198,9 +200,10 @@ def test_later_slices_raise():
         assert set(new_state) == set(state)
     with pytest.raises(NotImplementedError, match="parallel slice"):
         tmu.apply(params, state, x, cfg=cfg, mesh=object())
-    with pytest.raises(NotImplementedError):
-        tmu.quantize_params_for_inference(params)
-    with pytest.raises(NotImplementedError):
+    quantized = tmu.quantize_params_for_inference(params)
+    assert quantized["final_layer.0.kernel_q"].dtype == torch.int8
+    assert "final_layer.0.weight" not in quantized
+    with pytest.raises(RuntimeError, match="recorded no conv activations"):
         tmu.calibrate_activation_scales(params, None, [])
 
 
