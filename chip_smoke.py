@@ -156,6 +156,35 @@ final result):
     evaluate (semantic; instances), predict, export --quantize int8,
     import-torch of a `module.`-prefixed .pth of the trained state, and
     evaluate of the import, equal to the source's; JSON keys as JAX's.
+    cli_parallel, in the same stages: `train --n-data 1` and `evaluate
+    --n-data 1` (one NCCL rank; its evaluation equals the plain one) and
+    `train --pipeline 2`, which on a one-card host exits 2 with one line
+    naming the device count, as JAX's pipeline mesh refuses one device.
+24. dp_train: two gloo ranks on the one card (NCCL refuses two ranks on
+    one GPU), each on 4 rows of a global batch of 8 (c_out 150, 128x128,
+    the recipe's cached masks), f32 then bf16, SGD: 2 steps a rank, each
+    launching K2 6 and K4 6; a DP eval step, K1 6 a rank. Against the
+    one-process step on the same global batch and state: loss and mIoU
+    within 1%, the running stats, the f32 updates per tensor (cosine >=
+    0.99) and the bf16 rule of phase 6 against the f32 update. Wall and
+    device ms of each rank's step (two ranks share the card's SMs: no
+    speedup is claimed).
+25. dp_nccl: one NCCL rank on the card runs the DP step through
+    `make_mesh(n_data=1)`; it equals the step with no mesh (f32).
+26. pipeline: `pipeline_apply` with both stages on cuda:0 (two streams,
+    the decoder issued from a worker thread), 2 microbatches of 4: the
+    forward and running stats, and the pipelined step's SGD update (f32),
+    equal the sequential per-microbatch loop; a bf16 step launches K2 24
+    (12 and their recompute under torch.utils.checkpoint) and K4 12; its
+    wall and device ms and the measured overlap of the two stage streams;
+    then one dp x pp step (2 ranks x 2 microbatches of 2 rows) against the
+    one-process sequential loop.
+27. dp_serve: `build_model_runner` over a 2-replica mesh on cuda:0 answers
+    16 requests, K1 6 a forward a replica; its maps equal the single-
+    device runner's exactly in f32, and in bf16 the single-device
+    computation of each replica's rows (the 8-row runner within the
+    serving agreement bound: bf16 rounds a batch's last row otherwise);
+    `serve --n-data 2` on this one-card host exits 2 with one line.
 
 It imports torch, numpy and the port, nothing of JAX.
 """
@@ -2590,19 +2619,33 @@ def phase_cli(card: str, roots: dict, work: str,
                                 "--max-steps", "2", "--log-every", "0"),
         "visualize": start_cli("visualize", *common, "--workdir",
                                os.path.join(work, "viz_w"), "--out",
-                               os.path.join(work, "viz"))})
+                               os.path.join(work, "viz")),
+        # cli_parallel: one NCCL rank; the pipeline on a one-card host
+        "train_n1": start_cli("train", *common, "--workdir",
+                              os.path.join(work, "ade_n1"), "--max-steps",
+                              "2", "--log-every", "0", "--n-data", "1"),
+        "train_pipeline": start_cli("train", *common, "--workdir",
+                                    os.path.join(work, "ade_pp"),
+                                    "--max-steps", "1", "--pipeline", "2")})
     stage_a = time.monotonic() - t0
     results = {name: (r[0], last_json(r[1])) for name, r in a.items()}
     lines = a["recipes"][1].splitlines()
     check(a["recipes"][0] == 0 and len(lines) == 11
           and lines[0].startswith("ade_instance"),
           f"cli recipes: {a['recipes'][1][:200]} {a['recipes'][2][-300:]}")
-    for name in ("train", "train_city"):
+    for name in ("train", "train_city", "train_n1"):
         rc, out, err, _ = a[name]
         line = last_json(out) or {}
         check(rc == 0 and set(line) == CLI_KEYS["train"]
               and math.isfinite(line["best_loss"]),
               f"cli {name}: {line} {err[-600:]}")
+    rc, out, err, _ = a["train_pipeline"]
+    pipe_err = err.strip().splitlines()
+    check(rc == 2 and len(pipe_err) == 1 and pipe_err[0].startswith(
+              "error: --pipeline 2: pipeline mesh needs exactly 2 devices, "
+              f"got {torch.cuda.device_count()}"),
+          f"cli train --pipeline 2 on a one-card host: exit 2, one line: "
+          f"{rc} {pipe_err}")
     rc, out, err, _ = a["visualize"]
     if matplotlib is None:
         check(rc != 0 and "matplotlib" in err,
@@ -2641,7 +2684,10 @@ def phase_cli(card: str, roots: dict, work: str,
                             "latest", "--out", os.path.join(work, "art8"),
                             "--quantize", "int8"),
         "import-torch": start_cli("import-torch", *common, "--workdir",
-                                  w_imp, "--torch-checkpoint", pth)})
+                                  w_imp, "--torch-checkpoint", pth),
+        "evaluate_n1": start_cli("evaluate", *common, "--workdir", w_ade,
+                                 "--tag", "latest", "--attn-output-layout",
+                                 "literal_view", "--n-data", "1")})
     stage_b = time.monotonic() - t0
     t0 = time.monotonic()
     c = finish({"evaluate_imported": start_cli("evaluate", *common,
@@ -2662,6 +2708,12 @@ def phase_cli(card: str, roots: dict, work: str,
           f"cli evaluate: {source}")
     check(imported == source, f"cli evaluate of the imported .pth equals "
           f"the source state's: {imported} vs {source}")
+    n1 = line("evaluate_n1")
+    check(set(n1) == set(source) and all(
+        abs(n1[k] - v) <= 1e-5 * abs(v) for k, v in source.items()
+        if k != "recipe"),
+          f"cli evaluate --n-data 1 (one NCCL rank) equals evaluate: "
+          f"{n1} vs {source}")
     inst = line("evaluate_instances").get("instances", {})
     check(sorted(inst, key=int) == [str(q) for q in
                                     recipes.get("city_instance")
@@ -2683,6 +2735,608 @@ def phase_cli(card: str, roots: dict, work: str,
          lines={n: r[1] for n, r in results.items()},
          visualize_error=a["visualize"][2][-200:] if matplotlib is None
          else None)
+
+
+# --- data parallelism and the pipeline (phases 24-28) ----------------------
+
+DP_RANKS = 2                  # two ranks share cuda:0 (gloo)
+DP_STEPS = 2
+DP_STATE_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+PIPE_MICRO = 2                # microbatches of BATCH // PIPE_MICRO rows
+DP_DEADLINE_S = 600.0
+
+
+class SGD:
+    """An optimizer factory as `train.loop.AdamW`: plain SGD, whose update
+    is the gradient itself, so updated params compare as gradients do
+    (tests/test_sharding.py compares DP and one device so)."""
+    schedule = None
+
+    def __call__(self, params):
+        return torch.optim.SGD(params, lr=0.1)
+
+    def scheduler(self, optimizer):
+        return None
+
+
+def spawn_ranks(target, n: int, *args, backend: str = "gloo") -> list:
+    """`target(rank, *args)` in n spawned processes, ranks of a process
+    group met at a local port; their results in rank order. A rank that
+    fails, or misses the deadline, fails the phase (the others are
+    killed)."""
+    import queue
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=rank_entry, args=(target, r, n, port,
+                                                   backend, q, args))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + DP_DEADLINE_S
+    results, errors = {}, []
+    try:
+        for _ in range(n):
+            rank, err, out = q.get(timeout=max(1.0, end - time.monotonic()))
+            if err is not None:
+                errors.append(f"rank {rank}: {err}")
+            else:
+                results[rank] = out
+    except queue.Empty:
+        errors.append(f"ranks missed the {DP_DEADLINE_S:.0f} s deadline")
+    finally:
+        for p in procs:
+            p.join(timeout=max(1.0, end - time.monotonic()))
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return [results[r] for r in range(n)]
+
+
+def rank_entry(target, rank, n, port, backend, q, args) -> None:
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    from maskunet_tpu_torch.parallel import mesh as mesh_lib
+    try:
+        mesh_lib.init_distributed(f"127.0.0.1:{port}", n, rank, backend,
+                                  timeout=datetime.timedelta(seconds=300))
+        q.put((rank, None, target(rank, *args)))
+    except BaseException:  # noqa: BLE001 — reported by the parent
+        q.put((rank, traceback.format_exc()[-3000:], None))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def dp_setup(dtype: str, device="cuda"):
+    """The ADE model (c_out 150, 128x128) at `dtype`, its seeded state with
+    SGD and the recipe's cached masks for the global batch of 8, and one
+    fixed global batch."""
+    recipe = recipes.get("ade_semantic")
+    cfg = train_loop.model_config(recipe, NUM_CLASSES, compute_dtype=dtype)
+    ts = train_loop.setup_state(recipe, cfg, SGD(), batch_size=BATCH,
+                                device=device)
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.standard_normal((BATCH, IMG, IMG, 3)).astype(
+                 np.float32),
+             "label": rng.integers(0, NUM_CLASSES, (BATCH, IMG, IMG))}
+    return cfg, ts, batch
+
+
+def snapshot(ts) -> dict:
+    return {k: v.detach().clone() for k, v in ts.params.items()}
+
+
+def update_of(ts, before: dict) -> dict:
+    return {k: (v.detach() - before[k]).double().flatten()
+            for k, v in ts.params.items() if not exact_zero_grad(k)}
+
+
+def step_once(step, ts, batch) -> tuple:
+    """One step, counters zeroed just before it: (ts, metrics, launches,
+    wall ms)."""
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    ts, metrics = step(ts, batch)
+    torch.cuda.synchronize()
+    return ts, metrics, kernel_launches(), (time.perf_counter() - t0) * 1e3
+
+
+def profiled_device_ms(fn) -> float | str:
+    """The device's kernel time of one call of `fn`, by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_kernel_rows(prof)
+    return sum(r[0] for r in rows) / 1e3 if rows else "not measured"
+
+
+def compare_updates(got: dict, want: dict) -> tuple:
+    """(least per-tensor cosine, its tensor) of two updates."""
+    coss = {k: cos(got[k], want[k]) for k in want}
+    worst = min(coss, key=coss.get)
+    return coss[worst], worst
+
+
+def state_rel_diff(a: dict, b: dict) -> float:
+    """Largest difference of two states' running stats, relative to each
+    tensor's largest magnitude where that exceeds 1: absolute for running
+    means that are rounding noise about 0 (the input of a BatchNorm that
+    follows another has zero channel means in exact arithmetic)."""
+    return max(float((a[k] - b[k]).abs().max()
+                     / b[k].abs().max().clamp(min=1.0)) for k in b)
+
+
+def dp_train_rank(rank: int) -> dict:
+    """Phase dp_train, one rank: the DP step on its 4 rows of the global
+    batch of 8 (f32, then bf16), DP_STEPS + 1 steps each (the last one
+    profiled), and a DP eval step. Rank 0 also runs the one-process step
+    on the global batch and compares: loss, mIoU, the per-tensor cosine of
+    the SGD updates (f32), the bf16 rule of `step_grads` against the f32
+    one-process update, and the BN running stats."""
+    from maskunet_tpu_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh(DP_RANKS, devices=["cuda:0"] * DP_RANKS)
+    task = train_step.TaskConfig()
+    out = {}
+    truth = None
+    for dtype in ("float32", "bfloat16"):
+        cfg, ts, batch = dp_setup(dtype)
+        mesh_lib.put_replicated(mesh, ts)
+        plans = mu.precompute_mask_plans(ts.masks)
+        step = train_step.make_train_step(cfg, task, mask_plans=plans,
+                                          device="cuda:0", mesh=mesh)
+        before = snapshot(ts)
+        runs = []
+        for i in range(DP_STEPS):
+            ts, metrics, launches, wall = step_once(step, ts, batch)
+            runs.append((float(metrics["loss"]), float(metrics["miou"]),
+                         launches, wall))
+            if i == 0:
+                update = update_of(ts, before)
+                state = {k: v.clone() for k, v in ts.model_state.items()}
+        device = profiled_device_ms(lambda: step(ts, batch))
+        eval_step = train_step.make_eval_step(cfg, task, device="cuda:0",
+                                              mesh=mesh)
+        zero_launches()
+        result = eval_step(ts, batch, plans)
+        torch.cuda.synchronize()
+        r = {"losses": [x[0] for x in runs], "mious": [x[1] for x in runs],
+             "launches": [x[2] for x in runs],
+             "wall_ms": [x[3] for x in runs], "device_ms": device,
+             "eval_launches": kernel_launches(),
+             "eval_pred_rows": int(result["pred"].shape[0])}
+        if rank == 0:
+            cfg, ref, batch = dp_setup(dtype)
+            ref_before = snapshot(ref)
+            ref_step = train_step.make_train_step(
+                cfg, task, mask_plans=mu.precompute_mask_plans(ref.masks),
+                device="cuda:0")
+            ref, m = ref_step(ref, batch)
+            ref_update = update_of(ref, ref_before)
+            r.update(ref_loss=float(m["loss"]), ref_miou=float(m["miou"]),
+                     state_rel_diff=state_rel_diff(state, ref.model_state))
+            if dtype == "float32":
+                truth = ref_update
+                r["update_min_cos"], r["update_min_cos_tensor"] = \
+                    compare_updates(update, ref_update)
+            else:
+                signal = {k for k in truth
+                          if cos(ref_update[k], truth[k]) >= BF16_SIGNAL_COS}
+                margin = {k: cos(update[k], truth[k])
+                          - cos(ref_update[k], truth[k]) for k in signal}
+                worst = min(margin, key=margin.get)
+                r.update(bf16_signal_tensors=len(signal),
+                         bf16_worst_margin=margin[worst],
+                         bf16_worst_margin_tensor=worst)
+            del ref, ref_update
+        out[dtype] = r
+        del ts, update
+    return out
+
+
+def phase_dp_train(card: str) -> dict:
+    """Phase 24, dp_train: two gloo ranks on the one card, each on 4 rows
+    of the global batch of 8 (c_out 150, 128x128), against the one-process
+    step on the same global batch and state."""
+    t0 = time.monotonic()
+    r0, r1 = spawn_ranks(dp_train_rank, DP_RANKS)
+    want = dict.fromkeys(counted_wrappers(), 0)
+    for dtype in ("float32", "bfloat16"):
+        a, b = r0[dtype], r1[dtype]
+        check(all(l == {**want, "K2": 6, "K4": 6}
+                  for r in (a, b) for l in r["launches"]),
+              f"dp_train {dtype}: a step of each rank launches K2 6, K4 6: "
+              f"{a['launches']} {b['launches']}")
+        check(all(r["eval_launches"] == {**want, "K1": 6}
+                  and r["eval_pred_rows"] == BATCH // DP_RANKS
+                  for r in (a, b)),
+              f"dp_train {dtype}: a DP eval step launches K1 6 a rank on its "
+              f"4 rows: {a['eval_launches']}")
+        check(a["losses"] == b["losses"] and all(np.isfinite(a["losses"])),
+              f"dp_train {dtype}: the ranks' losses agree: {a['losses']} "
+              f"{b['losses']}")
+        check(abs(a["losses"][0] - a["ref_loss"])
+              <= TRAIN_LOSS_RTOL * abs(a["ref_loss"])
+              and abs(a["mious"][0] - a["ref_miou"])
+              <= TRAIN_LOSS_RTOL * abs(a["ref_miou"]),
+              f"dp_train {dtype}: loss and mIoU of the one-process step "
+              f"({a['losses'][0]} vs {a['ref_loss']}, {a['mious'][0]} vs "
+              f"{a['ref_miou']})")
+        check(a["state_rel_diff"] <= DP_STATE_RTOL[dtype],
+              f"dp_train {dtype}: BN running stats of the one-process step "
+              f"({a['state_rel_diff']})")
+    check(r0["float32"]["update_min_cos"] >= TRAIN_GRAD_COS,
+          f"dp_train: f32 SGD updates, per tensor, against one process: "
+          f"{r0['float32']['update_min_cos']}")
+    check(r0["bfloat16"]["bf16_worst_margin"] >= -BF16_COS_MARGIN,
+          "dp_train: bf16 updates as close to the f32 one-process update as "
+          "the bf16 one-process update")
+    emit(phase="dp_train", card=card, ranks=DP_RANKS, global_batch=BATCH,
+         seconds=time.monotonic() - t0, rank0=r0, rank1=r1,
+         note="two ranks share one card's SMs: their img/s says nothing "
+              "of DP on two cards")
+    return {"K2": r0["bfloat16"]["launches"][0]["K2"],
+            "K4": r0["bfloat16"]["launches"][0]["K4"],
+            "K1": r0["bfloat16"]["eval_launches"]["K1"]}
+
+
+def dp_nccl_rank(rank: int) -> dict:
+    """Phase dp_nccl: the DP step on `make_mesh(n_data=1)` in a one-rank
+    NCCL group against the step with no mesh (f32)."""
+    from maskunet_tpu_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh(n_data=1)
+    task = train_step.TaskConfig()
+    got = []
+    for m in (mesh, None):
+        cfg, ts, batch = dp_setup("float32")
+        mesh_lib.put_replicated(m, ts)
+        before = snapshot(ts)
+        step = train_step.make_train_step(
+            cfg, task, mask_plans=mu.precompute_mask_plans(ts.masks),
+            device="cuda:0", mesh=m)
+        ts, metrics, launches, wall = step_once(step, ts, batch)
+        got.append((float(metrics["loss"]), float(metrics["miou"]),
+                    snapshot(ts), before, launches, wall))
+    (l1, i1, p1, b1, n1, w1), (l2, i2, p2, _, _, w2) = got
+    import torch.distributed as dist
+    return {"backend": dist.get_backend(), "device": str(mesh.device),
+            "loss": [l1, l2], "miou": [i1, i2], "launches": n1,
+            "wall_ms": [w1, w2],
+            "params_max_abs_diff": max(float((p1[k] - p2[k]).abs().max())
+                                       for k in p1)}
+
+
+def phase_dp_nccl(card: str) -> None:
+    """Phase 25, dp_nccl: NCCL's init and collectives on the card, one
+    rank (NCCL refuses two ranks on one GPU)."""
+    (r,) = spawn_ranks(dp_nccl_rank, 1, backend="nccl")
+    want = dict.fromkeys(counted_wrappers(), 0)
+    emit(phase="dp_nccl", card=card, **r)
+    check(r["backend"] == "nccl" and r["device"] == "cuda:0",
+          f"dp_nccl: an NCCL group on cuda:0: {r['backend']} {r['device']}")
+    check(abs(r["loss"][0] - r["loss"][1]) <= 1e-5 * abs(r["loss"][1])
+          and abs(r["miou"][0] - r["miou"][1]) <= 1e-5 * abs(r["miou"][1])
+          and r["params_max_abs_diff"] <= 1e-5,
+          f"dp_nccl: the one-rank NCCL step equals the step with no mesh: "
+          f"{r['loss']} {r['miou']} {r['params_max_abs_diff']}")
+    check(r["launches"] == {**want, "K2": 6, "K4": 6},
+          f"dp_nccl: K2 6, K4 6: {r['launches']}")
+
+
+def sequential_update(ts, batch, cfg, task, n_micro: int, rows=None):
+    """The reference of the pipelined step: `apply` on each microbatch in
+    order (running stats threaded through, keep masks drawn as the forward
+    draws), one loss over all outputs, one SGD update. `rows`: compare one
+    rank's rows of each microbatch only (dp x pp): the loss is over the
+    global batch all the same. Returns (ts, new state, loss)."""
+    x = torch.from_numpy(batch["image"]).cuda()
+    labels = torch.from_numpy(batch["label"]).cuda()
+    state, outs = ts.model_state, []
+    for m in x.reshape(n_micro, -1, *x.shape[1:]):
+        out, new = mu.apply(ts.params, state, m, cfg=cfg, masks=ts.masks,
+                            train=True, dropout_generator=ts.generator)
+        state = {**state, **new}
+        outs.append(out.semantic)
+    sem = torch.cat(outs)
+    loss, _ = train_step._compute_loss(mu.ModelOutput(sem),
+                                       {"label": labels}, task, None)
+    keys = list(ts.params)
+    grads = torch.autograd.grad(loss, [ts.params[k] for k in keys],
+                                allow_unused=True)
+    with torch.no_grad():
+        for k, g in zip(keys, grads):
+            if g is not None:
+                ts.params[k] -= 0.1 * g
+    return ts, state, float(loss.detach())
+
+
+def stream_overlap(path: str) -> dict:
+    """Kernel time a stream, and the time the two stage streams (the two
+    busiest: they run every forward and backward kernel) ran kernels at
+    once, from a chrome trace."""
+    events = [e for e in json.load(open(path))["traceEvents"]
+              if e.get("cat") == "kernel"]
+    by = {}
+    for e in events:
+        by.setdefault(e["args"].get("stream"), []).append(
+            (e["ts"], e["ts"] + e["dur"]))
+    busy = {s: sum(b - a for a, b in v) / 1e3 for s, v in by.items()}
+    stages = sorted(by, key=busy.get, reverse=True)[:2]
+    overlap = 0.0
+    if len(stages) == 2:
+        for a0, a1 in by[stages[0]]:
+            for b0, b1 in by[stages[1]]:
+                overlap += max(0.0, min(a1, b1) - max(a0, b0))
+    return {"stream_busy_ms": {str(s): busy[s] for s in by},
+            "stage_streams": [str(s) for s in stages],
+            "overlap_ms": overlap / 1e3,
+            "overlap_share_of_smaller": (
+                overlap / 1e3 / min(busy[s] for s in stages)
+                if len(stages) == 2 else 0.0)}
+
+
+def dp_pp_rank(rank: int) -> dict:
+    """Phase pipeline's dp x pp step: 2 ranks x 2 microbatches of 2 rows
+    (f32, SGD), both stages of both ranks on cuda:0; rank 0 also runs the
+    one-process sequential loop on the global batch and compares the
+    loss, the updated params and the running stats."""
+    from maskunet_tpu_torch.parallel import mesh as mesh_lib
+    from maskunet_tpu_torch.parallel import pipeline as pp
+    mesh = pp.make_dp_pipe_mesh(DP_RANKS, devices=["cuda:0"] * 4)
+    task = train_step.TaskConfig()
+    cfg, ts, batch = dp_setup("float32")
+    ts.masks = tuple(m[:BATCH // PIPE_MICRO] for m in ts.masks)
+    mesh_lib.put_replicated(mesh.data, ts)
+    before = snapshot(ts)
+    step = train_step.make_train_step(
+        cfg, task, mask_plans=mu.precompute_mask_plans(ts.masks),
+        device="cuda:0", pipe_mesh=mesh, pipe_microbatches=PIPE_MICRO)
+    ts, metrics, launches, wall = step_once(step, ts, batch)
+    out = {"loss": float(metrics["loss"]), "launches": launches,
+           "wall_ms": wall}
+    if rank == 0:
+        update = update_of(ts, before)
+        cfg, ref, batch = dp_setup("float32")
+        ref.masks = tuple(m[:BATCH // PIPE_MICRO] for m in ref.masks)
+        ref_before = snapshot(ref)
+        ref, state, loss = sequential_update(ref, batch, cfg, task,
+                                             PIPE_MICRO)
+        out.update(ref_loss=loss, state_rel_diff=state_rel_diff(
+            ts.model_state, state))
+        out["update_min_cos"], out["update_min_cos_tensor"] = \
+            compare_updates(update, update_of(ref, ref_before))
+    return out
+
+
+def phase_pipeline(card: str) -> dict:
+    """Phase 26, pipeline: the 2-stage GPipe with both stages on cuda:0
+    (two CUDA streams, the decoder issued from a worker thread), M = 2
+    microbatches of 4. `pipeline_apply`'s forward and running stats, and
+    the pipelined step's update (f32, SGD), against the sequential loop;
+    then the bf16 step: launches, wall and device ms, and the overlap of
+    the two stage streams in a profiled step; then one dp x pp step."""
+    from maskunet_tpu_torch.parallel import pipeline as pp
+    t0 = time.monotonic()
+    mesh = pp.make_pipe_mesh(devices=["cuda:0", "cuda:0"])
+    task = train_step.TaskConfig()
+    want = dict.fromkeys(counted_wrappers(), 0)
+
+    # forward and running stats: pipelined vs sequential, same draws
+    cfg, ts, batch = dp_setup("float32")
+    masks = tuple(m[:BATCH // PIPE_MICRO] for m in ts.masks)
+    x = torch.from_numpy(batch["image"]).cuda()
+    with torch.no_grad():
+        outs = []
+        for pipelined in (True, False):
+            gen = torch.Generator(device="cuda").manual_seed(11)
+            if pipelined:
+                out, state = pp.pipeline_apply(
+                    ts.params, ts.model_state,
+                    pp.split_microbatches(x, PIPE_MICRO), cfg=cfg,
+                    mesh=mesh, masks=masks, train=True,
+                    dropout_generator=gen)
+                sem = out.semantic
+            else:
+                sems, state = [], ts.model_state
+                for m in x.reshape(PIPE_MICRO, -1, *x.shape[1:]):
+                    o, new = mu.apply(ts.params, state, m, cfg=cfg,
+                                      masks=masks, train=True,
+                                      dropout_generator=gen)
+                    state = {**state, **new}
+                    sems.append(o.semantic)
+                sem = torch.stack(sems)
+            outs.append((sem.float(), state))
+    (s1, st1), (s2, st2) = outs
+    fwd_err = float((s1 - s2).abs().max() / s2.abs().max())
+    fwd_state = state_rel_diff(st1, st2)
+
+    # the pipelined step's update against the sequential one (f32, SGD)
+    ts.masks = masks
+    before = snapshot(ts)
+    step = train_step.make_train_step(
+        cfg, task, mask_plans=mu.precompute_mask_plans(masks),
+        device="cuda", pipe_mesh=mesh, pipe_microbatches=PIPE_MICRO)
+    ts, metrics, f32_launches, _ = step_once(step, ts, batch)
+    update = update_of(ts, before)
+    cfg, ref, batch = dp_setup("float32")
+    ref.masks = masks
+    ref_before = snapshot(ref)
+    ref, ref_state, ref_loss = sequential_update(ref, batch, cfg, task,
+                                                 PIPE_MICRO)
+    upd_cos, upd_tensor = compare_updates(update, update_of(ref, ref_before))
+    step_state = state_rel_diff(ts.model_state, ref_state)
+    del ts, ref, update
+
+    # the bf16 step: launches, times, overlap
+    cfg, ts, batch = dp_setup("bfloat16")
+    ts.masks = tuple(m[:BATCH // PIPE_MICRO] for m in ts.masks)
+    step = train_step.make_train_step(
+        cfg, task, mask_plans=mu.precompute_mask_plans(ts.masks),
+        device="cuda", pipe_mesh=mesh, pipe_microbatches=PIPE_MICRO)
+    ts, m, launches, _ = step_once(step, ts, batch)
+    walls = []
+    for _ in range(5):
+        ts, m, _, wall = step_once(step, ts, batch)
+        walls.append(wall)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(ts, batch)
+        torch.cuda.synchronize()
+    rows = device_kernel_rows(prof)
+    trace = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_pipe_"),
+                         "trace.json")
+    prof.export_chrome_trace(trace)
+    overlap = stream_overlap(trace)
+    shutil.rmtree(os.path.dirname(trace), ignore_errors=True)
+    loss_bf16 = float(m["loss"])
+    del ts, step
+
+    dpp = spawn_ranks(dp_pp_rank, DP_RANKS)
+    emit(phase="pipeline", card=card, microbatches=PIPE_MICRO,
+         microbatch_rows=BATCH // PIPE_MICRO,
+         forward_rel_err_vs_sequential=fwd_err,
+         forward_state_rel_diff=fwd_state,
+         f32_step_launches=f32_launches, f32_step_loss=float(metrics["loss"]),
+         sequential_loss=ref_loss, update_min_cos=upd_cos,
+         update_min_cos_tensor=upd_tensor, step_state_rel_diff=step_state,
+         bf16_step_launches=launches, bf16_loss=loss_bf16,
+         wall_ms=walls, wall_ms_best=min(walls),
+         device_ms=(sum(r[0] for r in rows) / 1e3 if rows
+                    else "not measured"),
+         **overlap, dp_pp=dpp, seconds=time.monotonic() - t0,
+         note="both stages share one card: the overlap is of two streams "
+              "on its SMs, not of two cards")
+    # the stages' forwards run once and again in the backward
+    # (torch.utils.checkpoint's recompute): K2 2 x 6 a microbatch
+    pipe_want = {**want, "K2": 2 * 6 * PIPE_MICRO, "K4": 6 * PIPE_MICRO}
+    check(fwd_err <= 1e-5 and fwd_state <= 1e-5,
+          f"pipeline: forward and running stats equal the sequential loop "
+          f"({fwd_err}, {fwd_state})")
+    check(upd_cos >= TRAIN_GRAD_COS and step_state <= 1e-5
+          and abs(float(metrics["loss"]) - ref_loss) <= 1e-5 * abs(ref_loss),
+          f"pipeline: the step's loss, update and state equal the "
+          f"sequential loop's ({float(metrics['loss'])} vs {ref_loss}, "
+          f"{upd_cos} {upd_tensor}, {step_state})")
+    check(launches == pipe_want and f32_launches == pipe_want,
+          f"pipeline: a step launches K2 {2 * 6 * PIPE_MICRO} (forward and "
+          f"recompute), K4 {6 * PIPE_MICRO}: {launches} {f32_launches}")
+    check(np.isfinite(loss_bf16), "pipeline: finite bf16 loss")
+    for r in dpp:
+        check(r["launches"] == pipe_want,
+              f"pipeline dp x pp: a rank's step launches {pipe_want}: "
+              f"{r['launches']}")
+    check(dpp[0]["loss"] == dpp[1]["loss"]
+          and abs(dpp[0]["loss"] - dpp[0]["ref_loss"])
+          <= 1e-5 * abs(dpp[0]["ref_loss"])
+          and dpp[0]["update_min_cos"] >= TRAIN_GRAD_COS
+          and dpp[0]["state_rel_diff"] <= 1e-5,
+          f"pipeline dp x pp: the one-process sequential loop's loss, "
+          f"update and state: {dpp[0]}")
+    return {"K2": launches["K2"], "K4": launches["K4"], "K1": launches["K1"]}
+
+
+def phase_dp_serve(card: str) -> dict:
+    """Phase 27, dp_serve: `build_model_runner` over a 2-replica mesh on
+    cuda:0 (one process, 4 rows a replica) answers 16 requests through
+    the batcher, K1 6 a forward a replica. Its maps equal, exactly, the
+    single-device computation of each replica's rows (a single-device
+    runner at 4 rows on each half) in bf16, and the single-device runner
+    at 8 rows in f32 (JAX's contract, tests/test_serve.py); in bf16 the
+    last row of a batch rounds otherwise than the others (ROADMAP §3),
+    and the replicas have two last rows, so the bf16 maps against the
+    8-row runner are held to the serving agreement bound. Each answer
+    equals the DP forward of its image in one of the batch's slots.
+    `serve --n-data 2` on a one-card host exits 2 with one line."""
+    from maskunet_tpu_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh(2, devices=["cuda:0", "cuda:0"])
+    rng = np.random.default_rng(5)
+    images = [rng.integers(0, 256, (IMG, IMG, 3)).astype(np.uint8)
+              for _ in range(16)]
+    batches = [np.stack(images[i:i + BATCH]) for i in (0, BATCH)]
+    maps = {}
+    for dtype in ("float32", "bfloat16"):
+        kw = dict(compute_dtype=dtype, device="cuda")
+        single, _ = serve.build_model_runner(
+            "ade_semantic", NUM_CLASSES, None, batch_size=BATCH, **kw)
+        half, _ = serve.build_model_runner(
+            "ade_semantic", NUM_CLASSES, None, batch_size=BATCH // 2, **kw)
+        dp, _ = serve.build_model_runner(
+            "ade_semantic", NUM_CLASSES, None, batch_size=BATCH, mesh=mesh,
+            **kw)
+        got = [dp(b).cpu().numpy() for b in batches]
+        maps[dtype] = {
+            "dp": got,
+            "single": [single(b).cpu().numpy() for b in batches],
+            "halves": [np.concatenate([half(b[:BATCH // 2]).cpu().numpy(),
+                                       half(b[BATCH // 2:]).cpu().numpy()])
+                       for b in batches]}
+    stacked = batches[0]
+    batcher = serve._Batcher(dp, BATCH, max_wait_ms=20.0)
+    zero_launches()
+    with ThreadPoolExecutor(4) as ex:
+        answers = list(ex.map(batcher.predict, images))
+    counts = kernel_launches()
+    metrics = batcher.metrics()
+    zero_launches()
+    dp(stacked).cpu()
+    one = kernel_launches()
+    in_a_slot = sum(int(any(np.array_equal(a, row) for row in
+                            dp(np.stack([img] * BATCH)).cpu().numpy()))
+                    for img, a in zip(images, answers))
+    wall_dp, dev_dp = wall_and_device_ms(lambda: dp(stacked))
+    wall_1, dev_1 = wall_and_device_ms(lambda: single(stacked))
+    proc = subprocess.run(
+        [sys.executable, "-m", "maskunet_tpu_torch.serve", "--recipe",
+         "ade_semantic", "--num-classes", str(NUM_CLASSES), "--n-data", "2"],
+        cwd=ROOT, env=subprocess_env(), capture_output=True, text=True,
+        timeout=300)
+    err = proc.stderr.strip().splitlines()
+
+    def equal(dtype, ref):
+        m = maps[dtype]
+        return sum(int(np.array_equal(a, b)) for a, b in zip(m["dp"], m[ref]))
+
+    agree_bf16 = float(np.mean([(a == b).mean() for a, b in zip(
+        maps["bfloat16"]["dp"], maps["bfloat16"]["single"])]))
+    emit(phase="dp_serve", card=card, replicas=2, requests=16,
+         forwards=metrics["batches"], launches=counts,
+         launches_one_forward=one,
+         f32_batches_equal_single=equal("float32", "single"),
+         bf16_batches_equal_replica_rows=equal("bfloat16", "halves"),
+         bf16_batches_equal_single=equal("bfloat16", "single"),
+         bf16_agreement_with_single=agree_bf16,
+         answers_equal_a_slot=in_a_slot, wall_ms=wall_dp, device_ms=dev_dp,
+         single_wall_ms=wall_1, single_device_ms=dev_1,
+         serve_n_data_2=[proc.returncode, err[-1:]],
+         note="both replicas share one card")
+    want_counts = dict.fromkeys(counted_wrappers(), 0)
+    check(metrics["requests"] == 16 and metrics["errors"] == 0
+          and in_a_slot == 16,
+          f"dp_serve: 16 requests answered, each the DP forward of its "
+          f"image in a slot: {metrics} {in_a_slot}")
+    check(counts == {**want_counts, "K1": 12 * metrics["batches"]}
+          and one == {**want_counts, "K1": 12},
+          f"dp_serve: K1 6 a forward a replica: {counts}, {one}")
+    check(equal("float32", "single") == 2,
+          "dp_serve: f32 maps equal the single-device runner's exactly")
+    check(equal("bfloat16", "halves") == 2,
+          "dp_serve: bf16 maps equal each replica's rows on one device")
+    check(agree_bf16 >= SERVE_ARGMAX_AGREE,
+          f"dp_serve: bf16 maps against the 8-row runner: {agree_bf16}")
+    check(proc.returncode == 2 and len(err) == 1
+          and "--n-data 2" in err[0] and "has 1" in err[0],
+          f"dp_serve: serve --n-data 2 on one card exits 2 with one line: "
+          f"{proc.returncode} {err}")
+    return {"K1": one["K1"]}
 
 
 def kernel_entry(name, source, replaces, launches, err, t, **extra) -> dict:
@@ -2747,6 +3401,10 @@ def main() -> int:
         phase_data_rate(card, os.path.join(data_dir, "ade512"))
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
+    dp = phase_dp_train(card)
+    phase_dp_nccl(card)
+    pipe = phase_pipeline(card)
+    dp_serve = phase_dp_serve(card)
     kernel_online = phase_kernel_online()
     kernel_bwd_noclamp = phase_kernel_bwd_noclamp()
     safe = phase_safe(card)
@@ -2777,7 +3435,9 @@ def main() -> int:
                      launches_instance=instance["K1"],
                      launches_recipes=recipe_launches["K1"],
                      launches_export=exported["K1"],
-                     launches_int8=int8["K1"]),
+                     launches_int8=int8["K1"], launches_dp=dp["K1"],
+                     launches_pipeline=pipe["K1"],
+                     launches_dp_serve=dp_serve["K1"]),
         kernel_entry("flash_fwd_nomax_lse", fwd_src,
                      "maskunet_tpu/ops/flash_attention.py:267",
                      train_launches["K2"], kernel_lse["max_abs_err"],
@@ -2785,7 +3445,9 @@ def main() -> int:
                      launches_loop=loop["K2"],
                      launches_panoptic=panoptic["K2"],
                      launches_instance=instance["K2"],
-                     launches_recipes=recipe_launches["K2"]),
+                     launches_recipes=recipe_launches["K2"],
+                     launches_dp=dp["K2"], launches_pipeline=pipe["K2"],
+                     launches_dp_serve=0),
         kernel_entry("flash_fwd_online", online_src,
                      "maskunet_tpu/ops/flash_attention.py:111",
                      safe["K3"], kernel_online["max_abs_err"], online_totals,
@@ -2802,7 +3464,9 @@ def main() -> int:
                      launches_loop=loop["K4"],
                      launches_panoptic=panoptic["K4"],
                      launches_instance=instance["K4"],
-                     launches_recipes=recipe_launches["K4"]),
+                     launches_recipes=recipe_launches["K4"],
+                     launches_dp=dp["K4"], launches_pipeline=pipe["K4"],
+                     launches_dp_serve=0),
         kernel_entry("old_flash_fwd", online_src, "tools/softmax_ab.py:29",
                      tools["K5"]["launches"], tools["K5"]["max_abs_err"],
                      tools["K5"], bodies_bf16={"64": online_bodies["64"]}),

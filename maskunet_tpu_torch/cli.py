@@ -17,11 +17,21 @@ result lines, on the card (`--platform cpu` for the CPU):
         --torch-checkpoint checkpoint_ade.pth   # reference .pth -> ours
     python -m maskunet_tpu_torch.serve --recipe ... --port 8799   # HTTP
 
+Parallelism, with JAX's meanings (`maskunet_tpu_torch.parallel`):
+- `--n-data N` (train, evaluate): data parallelism over N devices, one
+  process each: this command starts N local ranks with a local TCP
+  rendezvous (gloo processes on the CPU with `--platform cpu`, NCCL on N
+  cards otherwise; a host with fewer cards exits 2). Only rank 0 prints.
+  The recipe's batch must divide by N (exit 2 otherwise).
+- `--pipeline M` (train): the 2-stage GPipe over the first two cards
+  (exit 2 on a host with fewer; with `--platform cpu` both stages run on
+  the CPU); with `--n-data N`, dp x pp over N pairs of cards.
+- `--distributed`: this process is one rank of a job its launcher
+  started: `--coordinator host:port`, `--num-processes` and `--process-id`
+  (or the launcher's MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK), one card a
+  process (LOCAL_RANK); `--n-data` defaults to the number of processes.
+
 What differs from the JAX CLI:
-- `--n-data`, `--pipeline M` (M > 1), `--distributed` and its
-  `--coordinator`, `--num-processes`, `--process-id` belong to the
-  parallel slice of the port, which is not ported yet: each prints one
-  error line and returns 2.
 - `--platform` is the torch device, `cuda` (default) or `cpu`;
   `--compute-dtype auto` is bf16 on the card and f32 on the CPU.
 - `train --resume` counts `--max-epochs` and `--max-steps` from the
@@ -34,12 +44,11 @@ What differs from the JAX CLI:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import socket
 import sys
-
-_PARALLEL = ("belongs to the parallel slice of the port (data, pipeline "
-             "and multi-host parallelism), which is not ported yet")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -60,18 +69,22 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    choices=["auto", "float32", "bfloat16"],
                    help="auto: bfloat16 on the card, float32 on the CPU")
     p.add_argument("--n-data", type=int, default=None,
-                   help=f"data-parallel mesh size: {_PARALLEL}")
+                   help="data-parallel mesh size: N ranks, one device each "
+                        "(train, evaluate)")
     p.add_argument("--platform", default=None, choices=["cuda", "cpu"],
                    help="the torch device (default: cuda, the card; cpu "
                         "runs the kernels' plain versions)")
     p.add_argument("--distributed", action="store_true",
-                   help=f"multi-host: {_PARALLEL}")
+                   help="multi-host: join the process group of a job "
+                        "started by a launcher before device/mesh setup")
     p.add_argument("--coordinator", default=None,
-                   help="with --distributed (refused)")
+                   help="with --distributed: rendezvous address "
+                        "(host:port); omit to read the launcher's "
+                        "MASTER_ADDR / MASTER_PORT")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="with --distributed (refused)")
+                   help="with --distributed: total process count")
     p.add_argument("--process-id", type=int, default=None,
-                   help="with --distributed (refused)")
+                   help="with --distributed: this process's index")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -118,7 +131,13 @@ def _parser() -> argparse.ArgumentParser:
                          "(e.g. 16/32 for CPU smoke runs; checkpoints "
                          "record the size they were trained at)")
     tp.add_argument("--pipeline", type=int, default=1, metavar="M",
-                    help=f"pipeline parallelism with M >= 2: {_PARALLEL}")
+                    help="pipeline parallelism: run M >= 2 microbatches of "
+                         "batch_size per step through the 2-stage GPipe "
+                         "(encoder | decoder over the first two cards); "
+                         "one global loss and optimizer update per step. "
+                         "Composes with --n-data N (a data x pipe mesh "
+                         "over N*2 cards) and with --grad-accum K "
+                         "(K accumulated flushes per optimizer update)")
     tp.add_argument("--lr-schedule", default=None,
                     choices=["cosine", "warmup_cosine", "step"],
                     help="optional lr schedule (default: the reference's "
@@ -223,18 +242,12 @@ def _error(message: str) -> int:
     return 2
 
 
-def _refused_parallel(args) -> str | None:
-    """The first parallel flag set, named, or None."""
-    if args.n_data is not None:
-        return "--n-data"
-    if getattr(args, "pipeline", 1) > 1:
-        return "--pipeline"
-    if args.distributed:
-        return "--distributed"
-    for flag in ("coordinator", "num_processes", "process_id"):
-        if getattr(args, flag) is not None:
-            return "--" + flag.replace("_", "-")
-    return None
+def _mesh_device(mesh) -> str:
+    """The device this process runs the command on: its rank's (its first
+    stage's under the pipeline)."""
+    from maskunet_tpu_torch.parallel.pipeline import PipeMesh
+    return str(mesh.devices[0] if isinstance(mesh, PipeMesh)
+               else mesh.device)
 
 
 def _num_classes(args, recipe) -> int:
@@ -269,10 +282,6 @@ def main(argv=None) -> int:
                   f"batch={r.batch_size:<3d} lr={r.lr:g} wd={r.weight_decay:g}")
         return 0
 
-    flag = _refused_parallel(args)
-    if flag is not None:
-        return _error(f"{flag} {_PARALLEL}")
-
     import dataclasses
 
     from maskunet_tpu_torch.core import checkpoint as ckpt_lib
@@ -306,19 +315,150 @@ def main(argv=None) -> int:
     if args.compute_dtype == "auto":
         args.compute_dtype = "bfloat16" if device == "cuda" else "float32"
 
+    if args.cmd == "train" and args.step_timeout_abort \
+            and not args.step_timeout:
+        # without a timeout no watchdog is armed — refuse rather than
+        # silently run unsupervised when the operator asked for abort
+        return _error("--step-timeout-abort requires --step-timeout "
+                      "(no watchdog is armed without a timeout)")
+
+    if args.n_data is not None and recipe.batch_size % args.n_data != 0:
+        # DP preflight: the global batch is split over the data axis, so it
+        # must divide evenly — fail here with a one-line message
+        # (city_semantic/city_panoptic have batch 1)
+        return _error(f"recipe '{recipe.name}' batch_size="
+                      f"{recipe.batch_size} is not divisible by --n-data="
+                      f"{args.n_data}; pick --n-data that divides the batch "
+                      "(or a recipe with a larger batch)")
+    pipeline = getattr(args, "pipeline", 1)
+    if args.distributed:
+        # this process is one rank of a job its launcher started
+        return _as_rank(args, recipe, device, args.coordinator,
+                        args.num_processes, args.process_id)
+    if args.n_data is not None and args.cmd in _PARALLEL_CMDS:
+        return _local_ranks(args, recipe, device)
+    mesh = None
+    if pipeline > 1:
+        from maskunet_tpu_torch.parallel import pipeline as pp_lib
+        try:
+            mesh = pp_lib.make_pipe_mesh(
+                devices=["cpu", "cpu"] if device == "cpu" else None)
+        except ValueError as e:
+            return _error(f"--pipeline {pipeline}: {e}")
+    return _command(args, recipe, device, mesh)
+
+
+# the subcommands that run on a mesh (JAX's CLI passes its mesh to these)
+_PARALLEL_CMDS = ("train", "evaluate")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_mesh(args, device: str):
+    """This rank's mesh in an initialised process group: the data mesh, or
+    with `--pipeline M` the dp x pp mesh; on the CPU every rank's devices
+    are the CPU."""
+    import torch.distributed as dist
+
+    from maskunet_tpu_torch.parallel import mesh as mesh_lib
+    n = args.n_data or dist.get_world_size()
+    if getattr(args, "pipeline", 1) > 1:
+        from maskunet_tpu_torch.parallel import pipeline as pp_lib
+        return pp_lib.make_dp_pipe_mesh(
+            n, devices=["cpu"] * (2 * n) if device == "cpu" else None)
+    return mesh_lib.make_mesh(n, devices=["cpu"] * n if device == "cpu"
+                              else None)
+
+
+def _run_rank(args, recipe, device: str) -> int:
+    """The command on this rank's mesh; only rank 0 prints its result."""
+    import torch.distributed as dist
+    try:
+        mesh = _rank_mesh(args, device)
+    except ValueError as e:
+        return _error(str(e))
+    out = (contextlib.nullcontext() if dist.get_rank() == 0
+           else contextlib.redirect_stdout(open(os.devnull, "w")))
+    with out:
+        return _command(args, recipe, device, mesh)
+
+
+def _as_rank(args, recipe, device: str, coordinator, n: int | None,
+             rank: int | None) -> int:
+    """Joins the process group (gloo on the CPU, NCCL on the card), runs
+    the command as this rank, and leaves the group."""
+    import torch.distributed as dist
+
+    from maskunet_tpu_torch.parallel import mesh as mesh_lib
+    mesh_lib.init_distributed(coordinator, n, rank,
+                              "gloo" if device == "cpu" else "nccl")
+    try:
+        return _run_rank(args, recipe, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_main(rank: int, args, recipe, device: str, port: int) -> None:
+    """A local rank started by `_local_ranks` (a spawned process)."""
+    import torch
+    os.environ["LOCAL_RANK"] = str(rank)
+    if device == "cpu":
+        torch.set_num_threads(1)   # N ranks share the host's cores
+    code = _as_rank(args, recipe, device, f"localhost:{port}", args.n_data,
+                    rank)
+    if code:
+        sys.exit(code)
+
+
+def _local_ranks(args, recipe, device: str) -> int:
+    """`--n-data N` without `--distributed`: N local ranks, one device
+    each, as processes of `torch.multiprocessing` meeting at a local TCP
+    rendezvous; a single rank runs in this process."""
+    n = args.n_data
+    if device == "cuda":
+        import torch
+        need = n * (2 if getattr(args, "pipeline", 1) > 1 else 1)
+        count = torch.cuda.device_count()
+        if count < need:
+            return _error(f"--n-data {n} needs {need} CUDA devices, this "
+                          f"host has {count}")
+    if n == 1:
+        return _as_rank(args, recipe, device, f"localhost:{_free_port()}",
+                        1, 0)
+    import torch.multiprocessing as mp
+    sys.stdout.flush()
+    try:
+        mp.start_processes(_rank_main, args=(args, recipe, device,
+                                             _free_port()),
+                           nprocs=n, join=True, start_method="spawn")
+    except mp.ProcessExitedException as e:
+        return e.exit_code if e.exit_code and e.exit_code > 0 else 1
+    except mp.ProcessRaisedException as e:
+        print(f"error: a rank failed: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _command(args, recipe, device: str, mesh) -> int:
+    """The subcommand's work on `device` (this rank's, under a process
+    group), with `mesh` where it runs on one."""
+    from maskunet_tpu_torch.core import checkpoint as ckpt_lib
+    if mesh is not None:
+        device = _mesh_device(mesh)
+    pipeline = getattr(args, "pipeline", 1)
     if args.cmd == "train":
-        if args.step_timeout_abort and not args.step_timeout:
-            # without a timeout no watchdog is armed — refuse rather than
-            # silently run unsupervised when the operator asked for abort
-            return _error("--step-timeout-abort requires --step-timeout "
-                          "(no watchdog is armed without a timeout)")
         from maskunet_tpu_torch.train import loop
         result = loop.train(
             recipe, args.data_root, args.workdir,
             max_steps=args.max_steps, max_epochs=args.max_epochs,
-            attn_impl=args.attn_impl, compute_dtype=args.compute_dtype,
+            mesh=mesh, attn_impl=args.attn_impl,
+            compute_dtype=args.compute_dtype,
             remat_attention=args.remat_attention, resume=args.resume,
-            grad_accum=args.grad_accum,
+            grad_accum=args.grad_accum, pipeline_microbatches=pipeline,
             lr_schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
             log_every=args.log_every, data_fraction=args.data_fraction,
             debug_nan=args.debug_nan, eval_every=args.eval_every,
@@ -346,7 +486,8 @@ def main(argv=None) -> int:
         _, ts = _state(args, recipe, num_classes, device)
         ts = ckpt_lib.restore_inference(_checkpoint(args, recipe), ts)
         kw = dict(max_batches=args.max_batches, attn_impl=args.attn_impl,
-                  compute_dtype=args.compute_dtype, device=device)
+                  compute_dtype=args.compute_dtype, device=device,
+                  mesh=mesh)
         if args.mode == "semantic":
             metrics = loop.evaluate(recipe, args.data_root, ts, **kw)
             print(json.dumps({"recipe": recipe.name, **metrics}))

@@ -161,20 +161,38 @@ def batchnorm(weight: torch.Tensor, bias: torch.Tensor,
 def batchnorm_train(weight: torch.Tensor, bias: torch.Tensor,
                     running_mean: torch.Tensor, running_var: torch.Tensor,
                     x: torch.Tensor, *, momentum: float = 0.1,
-                    eps: float = 1e-5
+                    eps: float = 1e-5, group=None
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Train-mode BatchNorm over (N, H, W) per channel, torch semantics, as
     JAX's `batchnorm(train=True)`: normalise with the biased batch variance
     E[x^2] - mean^2 in f32, fold the unbiased variance into the running
     stats with momentum 0.1. Returns (y in x's dtype, new running mean, new
-    running var); the running stats carry no gradient."""
+    running var); the running stats carry no gradient.
+
+    `group`: the data axis's process group (cross-replica BatchNorm, as
+    GSPMD gives JAX's DP): the per-channel Σx and Σx², summed in f32, and
+    the count go through one all-reduce, gradients flowing through it, so
+    the statistics are the global batch's on every rank (the count rides
+    in f32: exact up to 2^24 pixels a call)."""
     xf = x.float()
     dims = tuple(range(x.dim() - 1))
-    mean = xf.mean(dim=dims)
-    var = xf.square().mean(dim=dims) - mean.square()
     n = x.numel() // x.shape[-1]
+    if group is None:
+        mean = xf.mean(dim=dims)
+        var = xf.square().mean(dim=dims) - mean.square()
+        bessel = n / max(n - 1, 1)
+    else:
+        from maskunet_tpu_torch.parallel import mesh as mesh_lib
+        c = x.shape[-1]
+        sums = mesh_lib.all_reduce_sum(torch.cat([
+            xf.sum(dim=dims), xf.square().sum(dim=dims),
+            xf.new_full((1,), float(n))]), group)
+        count = sums[2 * c].detach()
+        mean = sums[:c] / count
+        var = sums[c:2 * c] / count - mean.square()
+        bessel = count / torch.clamp(count - 1, min=1)
     with torch.no_grad():
-        unbiased = var * (n / max(n - 1, 1))
+        unbiased = var * bessel
         new_mean = (1 - momentum) * running_mean + momentum * mean
         new_var = (1 - momentum) * running_var + momentum * unbiased
     inv = torch.rsqrt(var + eps) * weight

@@ -11,11 +11,16 @@ import torch
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore_index: int | None = None) -> torch.Tensor:
+                  ignore_index: int | None = None, group=None
+                  ) -> torch.Tensor:
     """logits [..., C] float; labels [...] int. Mean NLL in f32 over the
     pixels whose label is >= 0 and != ignore_index (negative labels mask
     padded eval rows); the denominator is at least 1. A label >= C picks
-    nothing (logit 0), as the JAX one-hot contraction does."""
+    nothing (logit 0), as the JAX one-hot contraction does.
+
+    `group` (the data axis): the denominator counts the pixels of every
+    rank, so the result is this rank's share of the global mean (the
+    local sum over the global count); the shares add up to it."""
     logits = logits.float()
     n = logits.shape[-1]
     keep = labels >= 0
@@ -26,4 +31,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     picked = torch.gather(logits, -1, safe.clamp(max=n - 1)[..., None])[..., 0]
     nll = logz - torch.where(safe < n, picked, 0.0)
     mask = keep.float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum()
+    if group is not None:
+        from maskunet_tpu_torch.parallel.mesh import all_reduce_
+        count = all_reduce_(count.detach().clone(), group)
+    return (nll * mask).sum() / torch.clamp(count, min=1.0)

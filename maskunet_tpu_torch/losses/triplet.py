@@ -80,9 +80,11 @@ def sample_triplets(generator: torch.Generator, instance_mask: torch.Tensor,
 def triplet_from_indices(features: torch.Tensor, a_idx: torch.Tensor,
                          p_idx: torch.Tensor, n_idx: torch.Tensor,
                          weight: torch.Tensor, *,
-                         margin: float = 1.0) -> torch.Tensor:
+                         margin: float = 1.0, group=None) -> torch.Tensor:
     """TripletMarginLoss over pre-sampled flat pixel indices, in f32.
-    features: [B,H,W,C]."""
+    features: [B,H,W,C]. `group` (the data axis): the weight sum counts
+    every rank's triplets, so the result is this rank's share of the
+    global mean (see `cross_entropy`)."""
     b, h, w, c = features.shape
     feats = features.reshape(b, h * w, c).float()
 
@@ -92,5 +94,9 @@ def triplet_from_indices(features: torch.Tensor, a_idx: torch.Tensor,
     a_f, p_f, n_f = gather(a_idx), gather(p_idx), gather(n_idx)
     per_triplet = torch.relu(_torch_distance(a_f, p_f)
                              - _torch_distance(a_f, n_f) + margin)
-    return (per_triplet * weight).sum() / torch.clamp(weight.sum(), min=1.0)
+    total = weight.sum()
+    if group is not None:
+        from maskunet_tpu_torch.parallel.mesh import all_reduce_
+        total = all_reduce_(total.detach().clone(), group)
+    return (per_triplet * weight).sum() / torch.clamp(total, min=1.0)
 

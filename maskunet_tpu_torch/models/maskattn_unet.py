@@ -16,8 +16,16 @@ plain versions on the CPU. `train=True` runs batch-statistics BatchNorm
 (returning the new running stats), dropout at the two decoder sites and,
 under autograd, the flash backward. `quantize_params_for_inference` turns
 the folded convs into int8 (`layers.conv2d_int8`), after an optional
-`calibrate_activation_scales`. Meshes belong to a later slice and raise
-here.
+`calibrate_activation_scales`.
+
+`mesh=` (`parallel.mesh.make_mesh`) is the data axis: each rank runs the
+forward on its own rows, and train-mode BatchNorm all-reduces its
+statistics over the mesh's process group (cross-replica BN). This is the
+counterpart of JAX's `_flash_mha_sharded` (maskunet_tpu/ops/
+flash_attention.py:570-587) too: there `shard_map` runs the Pallas kernel
+on each device's rows; here each rank launches K1/K2/K4 on its own rows,
+and the kernels are the single-device ones. A mesh with a 'model' axis
+(tensor parallelism) is refused: the ring-attention and TP slice.
 """
 
 from __future__ import annotations
@@ -203,9 +211,9 @@ class _BatchNorms:
     identity: the affines live in the convs)."""
 
     def __init__(self, params: dict, state: dict | None, *, train: bool,
-                 folded: bool):
+                 folded: bool, group=None):
         self.params, self.state = params, state
-        self.train, self.folded = train, folded
+        self.train, self.folded, self.group = train, folded, group
         self.new_state: dict[str, torch.Tensor] = {}
 
     def __call__(self, name: str, x: torch.Tensor) -> torch.Tensor:
@@ -216,7 +224,7 @@ class _BatchNorms:
                 s[f"{name}.running_mean"], s[f"{name}.running_var"], x)
         if not self.train:
             return layers.batchnorm(*args)
-        y, mean, var = layers.batchnorm_train(*args)
+        y, mean, var = layers.batchnorm_train(*args, group=self.group)
         self.new_state[f"{name}.running_mean"] = mean
         self.new_state[f"{name}.running_var"] = var
         return y
@@ -274,12 +282,14 @@ def _attn(params, i, x, masks, plans, cfg, train):
     return fn(p, x, masks[i - 1], plans[i - 1])
 
 
-def _check(train: bool, mesh, folded: bool) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh / tensor parallelism: parallel "
-                                  "slice")
+def _check(train: bool, mesh, folded: bool):
+    """The BatchNorm group of `mesh` (its data axis), after the refusals."""
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        from maskunet_tpu_torch.parallel.mesh import TP_SLICE
+        raise NotImplementedError(TP_SLICE)
     if folded and train:
         raise ValueError("folded params are eval-only")
+    return None if mesh is None else mesh.group
 
 
 def encode(params: dict, state: dict | None, x: torch.Tensor, *,
@@ -290,10 +300,10 @@ def encode(params: dict, state: dict | None, x: torch.Tensor, *,
     """Encoder: initial block, down1-3 with attn1-3, bottleneck. Returns
     ((x1, x2, x3, x4), new_state): in train the encoder's new running
     stats."""
-    _check(train, mesh, folded)
+    group = _check(train, mesh, folded)
     masks = masks if masks is not None else (None,) * 6
     plans = mask_plans if mask_plans is not None else (None,) * 6
-    bn = _BatchNorms(params, state, train=train, folded=folded)
+    bn = _BatchNorms(params, state, train=train, folded=folded, group=group)
     x = x.to(cfg.dtype)
     x1 = _convblock(params, bn, "initial_conv.conv_block", x, residual=False)
     x2 = _attn(params, 1, _down(params, bn, 1, x1), masks, plans, cfg, train)
@@ -317,14 +327,14 @@ def decode(params: dict, state: dict | None, skips, *,
     only), joint final LayerNorm, heads (ReLU on the logits, as the
     reference). Dropout draws its keep masks from `dropout_generator`, or
     takes them from `dropout_masks` (shapes `decoder_dropout_shapes`)."""
-    _check(train, mesh, folded)
+    group = _check(train, mesh, folded)
     masks = masks if masks is not None else (None,) * 6
     plans = mask_plans if mask_plans is not None else (None,) * 6
     keep = dropout_masks if dropout_masks is not None else (None, None)
     if (train and cfg.dropout_rate > 0 and dropout_masks is None
             and dropout_generator is None):
         raise ValueError("dropout_generator required when train=True")
-    bn = _BatchNorms(params, state, train=train, folded=folded)
+    bn = _BatchNorms(params, state, train=train, folded=folded, group=group)
     x1, x2, x3, x4 = skips
 
     def drop(h, i):
@@ -361,25 +371,40 @@ def decoder_dropout_shapes(cfg: MaskAttnUNetConfig,
     return ((batch, n // 4, n // 4, 128), (batch, n // 2, n // 2, 64))
 
 
+def draw_dropout_masks(generator: torch.Generator, cfg: MaskAttnUNetConfig,
+                       batch: int) -> tuple | None:
+    """The two decoder keep masks for `batch` rows, drawn from `generator`
+    in the order the forward draws them itself (so a forward on these
+    masks equals one that draws), or None without dropout."""
+    if cfg.dropout_rate <= 0:
+        return None
+    return tuple(layers.dropout_keep_mask(generator, cfg.dropout_rate, shape)
+                 for shape in decoder_dropout_shapes(cfg, batch))
+
+
 def apply(params: dict, state: dict | None, x: torch.Tensor, *,
           cfg: MaskAttnUNetConfig,
           masks: tuple[torch.Tensor, ...] | None = None,
           train: bool = False,
           dropout_generator: torch.Generator | None = None,
           mesh=None, folded: bool = False,
-          mask_plans: tuple | None = None) -> tuple[ModelOutput, dict]:
+          mask_plans: tuple | None = None,
+          dropout_masks: tuple | None = None) -> tuple[ModelOutput, dict]:
     """Forward. x: [B, H, W, c_in] NHWC. `masks`: per-layer key masks
     (None: all keys visible); `mask_plans`: `precompute_mask_plans(masks)`;
     `folded`: `params` came from `fold_bn_for_inference` (state unused).
     `train`: batch-statistics BatchNorm and dropout (keep masks drawn from
-    `dropout_generator`). Returns (output, state): in train the new
-    running stats of every BatchNorm, in eval `state` itself."""
+    `dropout_generator`, or `dropout_masks`). `mesh`: the data axis (this
+    rank's rows in `x` and `masks`; see the module docstring). Returns
+    (output, state): in train the new running stats of every BatchNorm, in
+    eval `state` itself."""
     skips, enc_state = encode(params, state, x, cfg=cfg, masks=masks,
                               train=train, mesh=mesh, folded=folded,
                               mask_plans=mask_plans)
     out, dec_state = decode(params, state, skips, cfg=cfg, masks=masks,
                             train=train, dropout_generator=dropout_generator,
-                            mesh=mesh, folded=folded, mask_plans=mask_plans)
+                            mesh=mesh, folded=folded, mask_plans=mask_plans,
+                            dropout_masks=dropout_masks)
     return out, ({**enc_state, **dec_state} if train else dec_state)
 
 

@@ -362,10 +362,13 @@ def _flash_fwd_nomax_impl(q, k, v, bias, scale, use_valid):
     _check(q, k, v, bias)
     b, lq, c = q.shape
     o = torch.empty_like(q)
-    flash_fwd_nomax.launches += _launch_batched(
+    launched = _launch_batched(
         "flash_fwd_nomax", (q, k, v, bias, o), lq, k.shape[1], c,
         int(q.dtype == torch.bfloat16), int(use_valid),
         weak_scalar(scale * _LOG2E, q.dtype))
+    # counted after the launch returns: a count never spans the launch, so
+    # launches from two threads (the pipeline's stages) lose none
+    flash_fwd_nomax.launches += launched
     return o
 
 
@@ -413,10 +416,11 @@ def flash_fwd_nomax_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, lq, c = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(b, 1, lq, device=q.device)
-    flash_fwd_nomax_lse.launches += _launch_batched(
+    launched = _launch_batched(
         "flash_fwd_nomax_lse", (q, k, v, bias, o, lse), lq, k.shape[1], c,
         int(q.dtype == torch.bfloat16), int(use_valid),
         weak_scalar(scale * _LOG2E, q.dtype))
+    flash_fwd_nomax_lse.launches += launched
     return o, lse
 
 
@@ -432,10 +436,11 @@ def _flash_fwd_online_impl(q, k, v, bias, scale, use_valid):
     b, lq, c = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(b, 1, lq, device=q.device)
-    flash_fwd_online.launches += _launch_batched(
+    launched = _launch_batched(
         "flash_fwd_online", (q, k, v, bias, o, lse), lq, k.shape[1], c,
         int(q.dtype == torch.bfloat16), int(use_valid),
         weak_scalar(scale * _LOG2E, q.dtype))
+    flash_fwd_online.launches += launched
     return o, lse
 
 
@@ -515,11 +520,12 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = _delta(o, do)
     dq = torch.zeros(b, lq, c, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    flash_bwd.launches += _launch_batched(
+    launched = _launch_batched(
         "flash_bwd", (q, k, v, bias, do, lse, delta, dq, dk, dv), lq,
         k.shape[1], c, int(q.dtype == torch.bfloat16), int(use_valid),
         int(clamp), weak_scalar(scale * _LOG2E, q.dtype), float(scale),
         rows=rows)
+    flash_bwd.launches += launched
     return dq.to(q.dtype), dk, dv
 
 

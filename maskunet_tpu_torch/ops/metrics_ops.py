@@ -53,11 +53,16 @@ def iou_counts(pred: torch.Tensor, labels: torch.Tensor, num_classes: int,
 
 def mean_iou(logits: torch.Tensor, labels: torch.Tensor, num_classes: int,
              smooth: float = 1e-6,
-             ignore_index: int | None = None) -> torch.Tensor:
+             ignore_index: int | None = None, group=None) -> torch.Tensor:
     """Batch mIoU, reference semantics (ignore pixels stay in the union
-    unless `ignore_index` is given)."""
+    unless `ignore_index` is given). `group` (the data axis): the
+    histograms are all-reduced, so it is the global batch's mIoU."""
     inter, union = iou_counts(predictions(logits), labels, num_classes,
                               ignore_index)
+    if group is not None:
+        from maskunet_tpu_torch.parallel.mesh import all_reduce_
+        counts = all_reduce_(torch.stack([inter, union]), group)
+        inter, union = counts[0], counts[1]
     present = union > 0
     iou = (inter.float() + smooth) / (union.float() + smooth)
     return (torch.where(present, iou, 0.0).sum()

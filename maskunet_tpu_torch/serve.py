@@ -19,8 +19,11 @@ The class count is `--num-classes`, or the recipe's dataset's (read under
 `--data-root`, as the JAX server does). `--quantize int8` serves int8 convs
 (`--calibrate-images <dir>`: static activation scales from those images);
 `--artifact <dir>` serves an exported artifact (`maskunet_tpu_torch.export`)
-in place of the checkpoint. Multi-card serving (`--n-data`) belongs to the
-parallel slice and is refused.
+in place of the checkpoint. `--n-data N` serves each batch over N cards
+from this one process, as JAX serves from one controller: the folded, cast
+params are replicated to each card, every card runs the forward on its
+rows of the batch with its rows of the per-slot masks (and their plans),
+and the class maps are concatenated.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import dataclasses
 import json
 import os
 import queue
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -228,13 +232,43 @@ def make_forward(infer_params: dict, masks: tuple | None, plans: tuple | None,
     return forward
 
 
+def make_replicated_forward(infer_params: dict, masks: tuple | None,
+                            cfg: mu.MaskAttnUNetConfig, mesh):
+    """The data-parallel serving forward over `mesh`'s devices, driven by
+    this one process: the params replicated to each device (one copy a
+    distinct device), replica i's rows of the per-slot `masks` and their
+    plans on its device; forward(images) splits the rows the same way,
+    runs every replica and concatenates the class maps on the first
+    device (not synchronised)."""
+    from maskunet_tpu_torch.parallel.mesh import move_tree
+    n = mesh.n_data
+    copies: dict = {}
+    replicas = []
+    for i, dev in enumerate(mesh.devices):
+        if dev not in copies:
+            copies[dev] = {k: v.to(dev) for k, v in infer_params.items()}
+        rows = None if masks is None else tuple(
+            m.chunk(n)[i] for m in masks)
+        rows = move_tree(rows, dev)
+        replicas.append(make_forward(copies[dev], rows,
+                                     mu.precompute_mask_plans(rows), cfg,
+                                     dev))
+
+    def forward(images) -> torch.Tensor:
+        images = torch.as_tensor(images)
+        parts = [fwd(x) for fwd, x in zip(replicas, images.chunk(n))]
+        return torch.cat([p.to(mesh.devices[0]) for p in parts])
+
+    return forward
+
+
 def build_inference_fn(recipe, num_classes: int, workdir: str | None = None,
                        tag: str = "best", *, attn_impl: str = "auto",
                        compute_dtype: str = "bfloat16",
                        batch_size: int | None = None,
                        quantize: str | None = None,
                        calibrate_images: str | None = None,
-                       device: str | torch.device = "cuda"):
+                       device: str | torch.device = "cuda", mesh=None):
     """The folded serving forward and its operands: returns
     ``(forward, infer_params, masks, cfg)`` with ``forward(x_uint8)`` the
     class-map prediction. The weights and masks are the checkpoint's
@@ -248,7 +282,12 @@ def build_inference_fn(recipe, num_classes: int, workdir: str | None = None,
     `quantize="int8"`: int8 convs (`mu.quantize_params_for_inference`);
     `calibrate_images`, with it: a directory of sample images whose
     per-conv activation maxima become static scales (every image counts;
-    the ragged tail batch is padded by repetition, which adds no maximum)."""
+    the ragged tail batch is padded by repetition, which adds no maximum).
+
+    `mesh` (`parallel.mesh.make_mesh` without a process group): data-
+    parallel serving over its devices (`make_replicated_forward`); the
+    batch must divide by its size, as JAX requires. The weights are built
+    on `device`, then replicated."""
     if isinstance(recipe, str):
         recipe = recipes_lib.get(recipe)
     if quantize is not None and quantize != "int8":
@@ -268,6 +307,15 @@ def build_inference_fn(recipe, num_classes: int, workdir: str | None = None,
     # serving masks: row 0 of the state's masks broadcast over the batch,
     # so an image scores the same in every slot and at any batch size
     batch = batch_size or recipe.batch_size
+    if mesh is not None:
+        if mesh.group is not None:
+            raise ValueError("serving drives every device of its mesh from "
+                             "one process: build the mesh without a process "
+                             "group")
+        if batch % mesh.shape["data"] != 0:
+            raise ValueError(
+                f"serving batch {batch} must divide by the data-axis size "
+                f"{mesh.shape['data']}")
     masks = tuple(m[:1].expand(batch, -1).contiguous() for m in ts.masks)
     plans = mu.precompute_mask_plans(masks)
     with torch.no_grad():
@@ -301,7 +349,10 @@ def build_inference_fn(recipe, num_classes: int, workdir: str | None = None,
             infer_params, act_scales=act_scales)
     if compute_dtype == "bfloat16":
         infer_params = mu.cast_params_for_inference(infer_params)
-    forward = make_forward(infer_params, masks, plans, cfg, dev)
+    if mesh is not None:
+        forward = make_replicated_forward(infer_params, masks, cfg, mesh)
+    else:
+        forward = make_forward(infer_params, masks, plans, cfg, dev)
     return forward, infer_params, masks, cfg
 
 
@@ -311,13 +362,15 @@ def build_model_runner(recipe, num_classes: int, workdir: str | None = None,
                        batch_size: int | None = None,
                        quantize: str | None = None,
                        calibrate_images: str | None = None,
-                       device: str | torch.device = "cuda"):
+                       device: str | torch.device = "cuda", mesh=None):
     """Returns (runner(images_uint8 [B,H,W,3]) -> class maps, img_size).
-    The runner returns the device tensor without waiting for it."""
+    The runner returns the device tensor without waiting for it. `mesh`:
+    data-parallel serving (`build_inference_fn`)."""
     forward, _, _, cfg = build_inference_fn(
         recipe, num_classes, workdir, tag, attn_impl=attn_impl,
         compute_dtype=compute_dtype, batch_size=batch_size,
-        quantize=quantize, calibrate_images=calibrate_images, device=device)
+        quantize=quantize, calibrate_images=calibrate_images, device=device,
+        mesh=mesh)
     return forward, cfg.img_size
 
 
@@ -436,21 +489,19 @@ def main(argv=None) -> int:
                          "images for static activation scales instead of "
                          "per-sample dynamic ones")
     ap.add_argument("--n-data", type=int, default=None,
-                    help="data-parallel serving over N cards: belongs to "
-                         "the parallel slice, refused here")
+                    help="data-parallel serving mesh size: the batch "
+                         "shards over N cards (must divide batch size)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions (an artifact runs where it was "
                          "exported)")
     args = ap.parse_args(argv)
 
-    if args.n_data is not None:
-        ap.error("--n-data (data-parallel serving) belongs to the parallel "
-                 "slice of the port, which is not ported yet")
     if args.artifact:
-        # an artifact is a frozen computation: its batch, classes and
+        # an artifact is a frozen computation: its mesh, batch, classes and
         # quantization were fixed at export time
-        for value, name in ((args.quantize, "--quantize"),
+        for value, name in ((args.n_data, "--n-data"),
+                            (args.quantize, "--quantize"),
                             (args.calibrate_images, "--calibrate-images"),
                             (args.batch_size, "--batch-size"),
                             (args.num_classes, "--num-classes")):
@@ -467,6 +518,22 @@ def main(argv=None) -> int:
     else:
         if not args.recipe:
             ap.error("--recipe is required unless --artifact is given")
+        mesh = None
+        if args.n_data is not None:
+            from maskunet_tpu_torch.parallel import mesh as mesh_lib
+            # "use N cards": N distinct cards of this host (refused where
+            # it has fewer), or on the CPU N replicas sharing it
+            try:
+                mesh = mesh_lib.make_mesh(
+                    n_data=args.n_data,
+                    devices=([args.device] * args.n_data
+                             if torch.device(args.device).type == "cpu"
+                             else mesh_lib.default_devices(args.n_data)))
+            except ValueError as e:
+                # one line, as the CLI's refusals
+                print(f"error: --n-data {args.n_data}: {e}",
+                      file=sys.stderr)
+                raise SystemExit(2) from None
         recipe = recipes_lib.get(args.recipe)
         # reference-imported checkpoints must serve with the attention
         # layout their weights encode (the import records it)
@@ -487,7 +554,7 @@ def main(argv=None) -> int:
             recipe, num_classes, args.workdir, args.tag,
             compute_dtype=args.compute_dtype, batch_size=batch,
             quantize=args.quantize, calibrate_images=args.calibrate_images,
-            device=args.device)
+            device=args.device, mesh=mesh)
         served = args.recipe
         device = args.device
     # warm up (kernel build, cuDNN plans) before accepting traffic

@@ -19,6 +19,11 @@ The semantic flow (val loss + mIoU, ade_semantic.py:439-474) is
 
 Records are keyed by the dataset's image ids (COCO's json ids; the
 dataset index elsewhere).
+
+`mesh=` (the data axis, `parallel.mesh`): the device eval is sharded, each
+rank evaluating its rows of every batch, and the rows are gathered, so
+the host decode sees the whole batch, as JAX's single controller does;
+every rank decodes it and returns the same results.
 """
 
 from __future__ import annotations
@@ -29,13 +34,13 @@ import os
 import numpy as np
 import torch
 
-from maskunet_tpu_torch.core.device import resolve_device
 from maskunet_tpu_torch.data import coco as coco_data
 from maskunet_tpu_torch.data import pipeline
 from maskunet_tpu_torch.evaluation import (clustering, coco_eval, instances,
                                            panoptic)
 from maskunet_tpu_torch.evaluation import rle as rle_lib
 from maskunet_tpu_torch.models import maskattn_unet as model_lib
+from maskunet_tpu_torch.parallel import mesh as mesh_lib
 from maskunet_tpu_torch.tasks.datasets import make_datasets
 from maskunet_tpu_torch.tasks.recipes import Recipe
 from maskunet_tpu_torch.train import loop as loop_lib
@@ -54,17 +59,18 @@ def _eval_dataset(recipe: Recipe, data_root: str | None,
 def _iter_eval(recipe: Recipe, ds, num_classes: int, ts, *,
                attn_impl: str = "auto", max_batches: int | None = None,
                compute_dtype: str = "float32",
-               device: str | torch.device = "cuda"):
+               device: str | torch.device = "cuda", mesh=None):
     """Yields (dataset indices, image ids, host dict) per batch. Host: numpy
     pred/prob/label/valid[/instance], and the embeddings (if the model has
     them) as a tensor left on `device`, where the DBSCAN runs. Rows beyond
     the dataset end (pad_last) are excluded via host['valid']. The step
     comes from `step_lib.cached_eval_step`, shared with the loop's
-    validation."""
-    dev = resolve_device(device)
+    validation. `mesh`: each rank evaluates its rows, gathered here."""
+    dev = loop_lib.run_device(mesh, device)
     cfg = loop_lib.model_config(recipe, num_classes, attn_impl=attn_impl,
                                 compute_dtype=compute_dtype)
-    eval_step = step_lib.cached_eval_step(cfg, recipe.task_config, dev)
+    eval_step = step_lib.cached_eval_step(cfg, recipe.task_config, dev,
+                                          mesh)
     # compaction plans once per eval run, not once per batch
     mask_plans = model_lib.precompute_mask_plans(ts.masks)
     batches = pipeline.BatchIterator(ds, recipe.batch_size,
@@ -73,6 +79,8 @@ def _iter_eval(recipe: Recipe, ds, num_classes: int, ts, *,
     n = len(ds)
     for i, batch in enumerate(batches.epoch(0)):
         result = eval_step(ts, pipeline.to_device(batch, dev), mask_plans)
+        result = {k: mesh_lib.all_gather_rows(v, mesh) for k, v in
+                  result.items() if k != "metrics"}
         host = {
             "pred": result["pred"].cpu().numpy(),
             "prob": result["prob"].cpu().numpy(),
@@ -137,8 +145,8 @@ def evaluate_instances(recipe: Recipe, data_root: str | None, ts, *,
                        compute_dtype: str = "float32",
                        split: str = "val",
                        dataset: tuple | None = None,
-                       device: str | torch.device = "cuda"
-                       ) -> dict[int, dict]:
+                       device: str | torch.device = "cuda",
+                       mesh=None) -> dict[int, dict]:
     """Instance AP with the reference's max_queries sweep
     (ade_instance.py:451-457: 50/100/150/200; city_instance.py:510:
     30/50/70/100). Returns {max_queries: summarize() stats}.
@@ -169,7 +177,7 @@ def evaluate_instances(recipe: Recipe, data_root: str | None, ts, *,
     for indices, ids, host in _iter_eval(
             recipe, ds, num_classes, ts, attn_impl=attn_impl,
             max_batches=max_batches, compute_dtype=compute_dtype,
-            device=device):
+            device=device, mesh=mesh):
         for b in range(host["pred"].shape[0]):
             if not host["valid"][b]:
                 continue
@@ -214,7 +222,8 @@ def evaluate_panoptic(recipe: Recipe, data_root: str | None, ts, *,
                       compute_dtype: str = "float32",
                       export_dir: str | None = None,
                       dataset: tuple | None = None,
-                      device: str | torch.device = "cuda") -> dict:
+                      device: str | torch.device = "cuda",
+                      mesh=None) -> dict:
     """AP (segm, iouThrs 0.5:0.95) + PQ All/Things/Stuff + mean IoU —
     the tuple the reference prints (ade_panoptic.py:588-592).
 
@@ -258,7 +267,7 @@ def evaluate_panoptic(recipe: Recipe, data_root: str | None, ts, *,
         for _, ids, host in _iter_eval(
                 recipe, ds, num_classes, ts, attn_impl=attn_impl,
                 max_batches=max_batches, compute_dtype=compute_dtype,
-                device=device):
+                device=device, mesh=mesh):
             gt_inst = host.get("instance")
             for b in range(host["pred"].shape[0]):
                 if not host["valid"][b]:

@@ -8,8 +8,18 @@ a prefetched input pipeline, jsonl metrics and an images/sec meter.
 
 In-training validation gives loss and mIoU, and for panoptic recipes
 PQ and AP, for instance recipes AP at the last of `eval_max_queries`
-(`tasks/evaluators.py`, on the cached validation set). Meshes and the
-pipeline (parallel slice) raise here.
+(`tasks/evaluators.py`, on the cached validation set).
+
+`mesh` (`parallel.mesh.make_mesh` in a process group): data parallelism,
+this process being one rank. Every rank builds the same state, which is
+then rank 0's on all (`put_replicated`, after init, restore and warm
+start); every rank reads the same global batches and the step takes its
+rows; validation runs under the mesh. Only rank 0 writes checkpoints and
+logs, as JAX's process 0: the others wait for it at a barrier at each
+epoch's end and before returning, where JAX's processes wait at their
+next collective. `pipeline_microbatches > 1`: the 2-stage GPipe
+(`parallel/pipeline.py`), on `make_pipe_mesh()` or on `mesh` when it has
+the pipe axis (dp x pp from `make_dp_pipe_mesh`).
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from maskunet_tpu_torch.core.device import resolve_device
 from maskunet_tpu_torch.core.loop_control import EarlyStopping, OverfitGuard
 from maskunet_tpu_torch.data import pipeline
 from maskunet_tpu_torch.models import maskattn_unet as model_lib
+from maskunet_tpu_torch.parallel import mesh as mesh_lib
 from maskunet_tpu_torch.tasks.datasets import make_datasets
 from maskunet_tpu_torch.tasks.recipes import Recipe
 from maskunet_tpu_torch.train import step as step_lib
@@ -183,12 +194,23 @@ class _HostMetrics:
         return dict(zip(self.keys, self.host.tolist()))
 
 
-def _check_unported(mesh, pipeline_microbatches: int) -> None:
+def run_device(mesh, device) -> torch.device:
+    """The device this process runs on: its rank's under a process group,
+    else `device`."""
+    if mesh_lib.data_group(mesh) is not None:
+        return resolve_device(mesh.device)
+    return resolve_device(device)
+
+
+def _pipe_mesh(mesh, dev: torch.device):
+    """The pipeline's mesh: `mesh` when it has the pipe axis (dp x pp), or
+    the first two cards; on the CPU both stages run on it, as JAX's CPU
+    runs use virtual devices."""
+    from maskunet_tpu_torch.parallel import pipeline as pp_lib
     if mesh is not None:
-        raise NotImplementedError("mesh: parallel slice")
-    if pipeline_microbatches > 1:
-        raise NotImplementedError(
-            "pipeline_microbatches > 1: parallel slice (GPipe)")
+        return pp_lib.validate_pipe_mesh(mesh)
+    return pp_lib.make_pipe_mesh(devices=[dev, dev] if dev.type == "cpu"
+                                 else None)
 
 
 def train(recipe: Recipe, data_root: str | None, workdir: str, *,
@@ -222,9 +244,22 @@ def train(recipe: Recipe, data_root: str | None, workdir: str, *,
     resumed run starts at the epoch its checkpoint's step falls in and
     counts steps from that step, so it ends where an uninterrupted run
     would (JAX's loop restarts both counts at 0 after a resume). A fresh
-    run is the same in both."""
-    _check_unported(mesh, pipeline_microbatches)
-    dev = resolve_device(device)
+    run is the same in both.
+
+    `mesh` and `pipeline_microbatches`: the module docstring. Under a
+    process group `device` is the rank's own, `mesh.device`."""
+    pp_micro = max(pipeline_microbatches, 1)
+    pipe_mesh = None
+    if pp_micro > 1:
+        # the mesh moves whole to the pipeline executor, as JAX's does
+        pipe_mesh = _pipe_mesh(mesh, resolve_device(device))
+        mesh = None
+        dev = resolve_device(pipe_mesh.devices[0])
+    else:
+        dev = run_device(mesh, device)
+    data = pipe_mesh.data if pipe_mesh is not None else mesh
+    lead = mesh_lib.is_lead(data)
+    save_lead = lead and save_checkpoints
     train_ds, val_ds, num_classes = make_datasets(recipe, data_root)
     if data_fraction < 1.0:
         from maskunet_tpu_torch.data.subset import FractionSubset
@@ -237,8 +272,11 @@ def train(recipe: Recipe, data_root: str | None, workdir: str, *,
                        compute_dtype=compute_dtype,
                        remat_attention=remat_attention)
     epochs = max_epochs if max_epochs is not None else recipe.num_epochs
-    steps_per_epoch = max(len(train_ds) // (recipe.batch_size * grad_accum),
-                          1)
+    # grad_accum and the pipeline's microbatches: a step consumes
+    # micro_per_step batches of recipe.batch_size (the masks' size)
+    micro_per_step = grad_accum * pp_micro
+    steps_per_epoch = max(
+        len(train_ds) // (recipe.batch_size * micro_per_step), 1)
     optimizer = make_optimizer(
         recipe, lr_schedule=lr_schedule, warmup_steps=warmup_steps,
         total_steps=(max_steps if max_steps is not None
@@ -250,23 +288,28 @@ def train(recipe: Recipe, data_root: str | None, workdir: str, *,
         # checkpoint; `init_drop` prefixes and shape mismatches stay fresh
         skipped = ckpt_lib.warm_start(
             ts, ckpt_lib.restore_raw(init_from)["params"], init_drop)
-        if verbose:
+        if verbose and lead:
             print(f"warm start from {init_from}; "
                   f"{len(skipped)} leaves kept fresh")
 
     manager = ckpt_lib.CheckpointManager(workdir, recipe.checkpoint_name)
     if resume and manager.has("latest"):
         ts = manager.restore(ts, "latest")
-        if verbose:
+        if verbose and lead:
             print(f"resumed from step {ts.step}")
+    # every rank holds rank 0's state from here on
+    mesh_lib.put_replicated(data, ts)
 
     # compaction plans from the masks the state ACTUALLY carries, after
     # the restore and the warm start settled them
     mask_plans = model_lib.precompute_mask_plans(ts.masks)
-    train_step = step_lib.make_train_step(cfg, recipe.task_config,
-                                          grad_accum=grad_accum,
-                                          mask_plans=mask_plans, device=dev)
-    logger = metrics_log.MetricsLogger(workdir, f"train_{recipe.name}")
+    train_step = step_lib.make_train_step(
+        cfg, recipe.task_config, grad_accum=grad_accum,
+        mask_plans=mask_plans, device=dev, mesh=mesh, pipe_mesh=pipe_mesh,
+        pipe_microbatches=pp_micro)
+    # only the lead writes logs (the others would race on its files)
+    logger = (metrics_log.MetricsLogger(workdir, f"train_{recipe.name}")
+              if lead else None)
     meter = metrics_log.Throughput()
     # `current` indirection: the callback saves the state at call time
     current: dict[str, Any] = {"ts": ts}
@@ -275,7 +318,7 @@ def train(recipe: Recipe, data_root: str | None, workdir: str, *,
     best_snap: dict[str, Any] = {}
 
     def _on_improve() -> None:
-        if save_checkpoints:
+        if save_lead:
             manager.save_best(current["ts"])
         if keep_best_state:
             best_snap["pm"] = (
@@ -283,12 +326,14 @@ def train(recipe: Recipe, data_root: str | None, workdir: str, *,
                  .items()},
                 {k: v.clone() for k, v in current["ts"].model_state.items()})
 
-    early = EarlyStopping(recipe.patience, verbose=verbose,
+    early = EarlyStopping(recipe.patience, verbose=verbose and lead,
                           on_improve=_on_improve)
     guard = OverfitGuard(recipe.overfit_margin)
 
+    # every rank reads the same global batches (the same seed): the step
+    # takes its rows on the device
     batches = pipeline.BatchIterator(
-        train_ds, recipe.batch_size * grad_accum, shuffle=True,
+        train_ds, recipe.batch_size * micro_per_step, shuffle=True,
         seed=recipe.seed, drop_last=True, num_threads=num_io_threads)
     history: list[dict] = []
     best_loss, best_iou = float("inf"), 0.0
@@ -297,7 +342,8 @@ def train(recipe: Recipe, data_root: str | None, workdir: str, *,
 
     # torch.profiler window: skip the first 2 steps of this run (kernel
     # builds and cuDNN plans pollute the trace), trace `profile_steps`
-    profile_start = steps_done + 2 if profile_dir is not None else -1
+    profile_start = (steps_done + 2 if profile_dir is not None and lead
+                     else -1)
     profiler = None
 
     def _maybe_profile():
@@ -312,7 +358,7 @@ def train(recipe: Recipe, data_root: str | None, workdir: str, *,
             _sync(dev)
             profiler.__exit__(None, None, None)
             profiler = None
-            if verbose:
+            if verbose and lead:
                 print(f"device trace ({profile_steps} steps) -> "
                       f"{profile_dir}")
 
@@ -349,7 +395,7 @@ def train(recipe: Recipe, data_root: str | None, workdir: str, *,
                     batch.pop("valid", None)
                     ts, metrics = train_step(ts, batch)
                     current["ts"] = ts
-                    meter.step(recipe.batch_size * grad_accum)
+                    meter.step(recipe.batch_size * micro_per_step)
                     if debug_nan:
                         from maskunet_tpu_torch.utils.profiling import \
                             nan_guard
@@ -367,12 +413,12 @@ def train(recipe: Recipe, data_root: str | None, workdir: str, *,
                     if profile_start >= 0:
                         _maybe_profile()
                     if log_every and i % log_every == 0 and i != 0 \
-                            and verbose and acc["count"]:
+                            and verbose and lead and acc["count"]:
                         print(f"epoch {epoch + 1}: batch[{i}] "
                               f"loss {acc['total_loss'] / acc['count']:.4f} "
                               f"iou {acc['total_iou'] / acc['count']:.4f}")
                     if ckpt_every and i % ckpt_every == 0 and i != 0 \
-                            and save_checkpoints:
+                            and save_lead:
                         manager.save_latest(ts)
                     if max_steps is not None and steps_done >= max_steps:
                         break
@@ -399,36 +445,38 @@ def train(recipe: Recipe, data_root: str | None, workdir: str, *,
                 # periodic in-training validation over eval_max_batches *
                 # batch_size images (the sample size is recorded beside it)
                 val = _evaluate_state(recipe, cfg, ts, val_ds, device=dev,
-                                      max_batches=eval_max_batches)
+                                      mesh=mesh, max_batches=eval_max_batches)
                 record.update({f"val_{k}": v for k, v in val.items()})
                 record["val_sample_images"] = min(
                     eval_max_batches * recipe.batch_size, len(val_ds))
                 record.update(_evaluate_task(
                     recipe, data_root, ts, (val_ds, num_classes),
                     max_batches=eval_max_batches, attn_impl=attn_impl,
-                    compute_dtype=compute_dtype, device=dev))
+                    compute_dtype=compute_dtype, device=dev, mesh=mesh))
             history.append(record)
-            logger.log(record)
-            if verbose:
+            if logger is not None:
+                logger.log(record)
+            if verbose and lead:
                 print(f"epoch [{epoch + 1}/{epochs}] loss {avg_loss:.4f} "
                       f"iou {avg_iou:.4f} "
                       f"({record['images_per_sec']} img/s)")
-            if save_checkpoints:
+            if save_lead:
                 manager.save_latest(ts)
+            mesh_lib.barrier(data)   # the others wait for the lead's save
 
             if max_steps is not None and steps_done >= max_steps:
                 stop_reason = "max_steps"
                 break
             if guard(avg_iou):
                 stop_reason = "overfit_guard"
-                if verbose:
+                if verbose and lead:
                     print("overfit guard triggered")
                 break
             # early() can save a best checkpoint (which may join the
             # previous in-flight save): inside the paused window
             if early(avg_loss):
                 stop_reason = "early_stop"
-                if verbose:
+                if verbose and lead:
                     print("early stopping triggered")
                 break
             if watchdog is not None:
@@ -438,8 +486,10 @@ def train(recipe: Recipe, data_root: str | None, workdir: str, *,
             watchdog.__exit__(None, None, None)
         if profiler is not None:   # the run ended inside the trace window
             profiler.__exit__(None, None, None)
-    logger.close()
+    if logger is not None:
+        logger.close()
     manager.wait()   # all async checkpoint writes durable before return
+    mesh_lib.barrier(data)
     best_state = None
     if "pm" in best_snap:
         bp, bm = best_snap["pm"]
@@ -456,9 +506,10 @@ def _sync(dev: torch.device) -> None:
 
 
 def _evaluate_state(recipe: Recipe, cfg, ts, val_ds, *,
-                    device: torch.device,
+                    device: torch.device, mesh=None,
                     max_batches: int | None = None) -> dict[str, float]:
-    eval_step = step_lib.cached_eval_step(cfg, recipe.task_config, device)
+    eval_step = step_lib.cached_eval_step(cfg, recipe.task_config, device,
+                                          mesh)
     mask_plans = model_lib.precompute_mask_plans(ts.masks)
     # pad_last so validation sets smaller than a batch still evaluate
     # (padded rows are metric-masked in the eval step through `valid`)
@@ -517,11 +568,12 @@ def evaluate(recipe: Recipe, data_root: str | None,
              compute_dtype: str = "float32",
              max_batches: int | None = None,
              device: str | torch.device = "cuda") -> dict[str, float]:
-    """Validation pass: loss + mIoU with running BN stats."""
-    _check_unported(mesh, 1)
+    """Validation pass: loss + mIoU with running BN stats; under a `mesh`
+    each rank evaluates its rows of every batch and the metrics are
+    global."""
     _, val_ds, num_classes = make_datasets(recipe, data_root)
     cfg = model_config(recipe, num_classes, attn_impl=attn_impl,
                        compute_dtype=compute_dtype)
     return _evaluate_state(recipe, cfg, ts, val_ds,
-                           device=resolve_device(device),
+                           device=run_device(mesh, device), mesh=mesh,
                            max_batches=max_batches)

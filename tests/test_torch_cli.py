@@ -7,8 +7,10 @@ package's, and the reference-checkpoint import behind `import-torch`.
   (training, evaluation, prediction, export, the checkpoint I/O), so
   what is compared is the command line itself; those calls are held to
   JAX's by their own test files.
-- The parallel flags and `--step-timeout-abort` alone return 2 with one
-  error line; `--compute-dtype auto` is f32 on the CPU.
+- The parallel flags with JAX's meanings (the CPU runs of `--n-data` and
+  `--pipeline` are in tests/test_torch_parallel.py and
+  tests/test_torch_pipeline.py), `--step-timeout-abort` alone returns 2
+  with one error line; `--compute-dtype auto` is f32 on the CPU.
 - `convert_state_dict` on a `module.`-prefixed reference state_dict
   gives the parameters and report of JAX's; `export_state_dict` JAX's
   state_dict.
@@ -198,12 +200,51 @@ def test_json_lines_equal_jax(name, monkeypatch, tmp_path, capsys):
     ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
     ["--process-id", "0"]])
 def test_parallel_flags_are_refused(flags, monkeypatch, capsys):
+    """The parallel flags with JAX's meanings. On a host without the cards
+    they need, `--n-data 2` and `--pipeline 2` on the card default exit 2
+    with one error line naming the device count, before any training (a
+    one-card host, as the card's machine);
+    `--distributed` joins the launcher's process group (here one process,
+    from MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK) and trains on its mesh;
+    `--coordinator`, `--num-processes` and `--process-id` without
+    `--distributed` change nothing, as in JAX's CLI."""
+    import socket
+
+    import torch.distributed as dist
     calls = []
-    monkeypatch.setattr(tloop, "train", lambda *a, **k: calls.append(k))
-    assert tcli.main(["train", "--recipe", "ade_semantic", *flags]) == 2
-    err = capsys.readouterr().err.strip().splitlines()
-    assert len(err) == 1 and err[0].startswith(f"error: {flags[0]} ")
-    assert "parallel slice" in err[0] and not calls
+
+    def train(recipe, data_root, workdir, **kw):
+        mesh = kw["mesh"]   # its rank and device, read while the group is up
+        calls.append({**kw, "rank_device": None if mesh is None else
+                      (mesh.rank, mesh.device)})
+        return SimpleNamespace(best_loss=0.0, best_iou=0.0,
+                               images_per_sec=0.0)
+
+    monkeypatch.setattr(tloop, "train", train)
+    if flags[0] in ("--n-data", "--pipeline"):
+        # as on the card's machine: one card
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        assert tcli.main(["train", "--recipe", "ade_semantic", *flags]) == 2
+        err = capsys.readouterr().err.strip().splitlines()
+        assert len(err) == 1 and err[0].startswith(f"error: {flags[0]} 2")
+        assert err[0].endswith(("this host has 1", "got 1")) and not calls
+        return
+    if flags[0] == "--distributed":
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        for k, v in (("MASTER_ADDR", "localhost"), ("MASTER_PORT", port),
+                     ("WORLD_SIZE", 1), ("RANK", 0)):
+            monkeypatch.setenv(k, str(v))
+        flags = [*flags, "--platform", "cpu"]
+    assert tcli.main(["train", "--recipe", "ade_semantic", *flags]) == 0
+    mesh = calls[0]["mesh"]
+    if flags[0] == "--distributed":
+        assert mesh.shape == {"data": 1, "model": 1}
+        assert calls[0]["rank_device"] == (0, torch.device("cpu"))
+        assert not dist.is_initialized()
+    else:
+        assert mesh is None
 
 
 def test_refusals_as_jax(monkeypatch, capsys):

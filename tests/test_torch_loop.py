@@ -36,6 +36,7 @@ from maskunet_tpu.train import loop as jloop
 from maskunet_tpu_torch.core import checkpoint as tckpt
 from maskunet_tpu_torch.core import loop_control as tcontrol
 from maskunet_tpu_torch.core import metrics_log
+from maskunet_tpu_torch.parallel import mesh as mesh_lib
 from maskunet_tpu_torch.tasks import recipes as trecipes
 from maskunet_tpu_torch.train import loop as tloop
 from maskunet_tpu_torch.utils import jax_weights, profiling
@@ -276,10 +277,15 @@ def test_warm_start_from_a_checkpoint_keeps_the_new_head(workdir):
 
 
 @pytest.mark.parametrize("kw, error, match", [
-    pytest.param({"mesh": object()}, NotImplementedError, "parallel slice",
-                 id="kw0-parallel slice"),
-    pytest.param({"pipeline_microbatches": 2}, NotImplementedError,
-                 "parallel slice", id="kw1-parallel slice"),
+    # the parallel slice is ported: what stays refused is tensor
+    # parallelism (a 'model' axis), and a pipeline on a mesh without the
+    # 'pipe' axis, as JAX refuses it
+    pytest.param({"mesh": mesh_lib.Mesh((torch.device("cpu"),) * 2,
+                                        n_model=2)},
+                 NotImplementedError, "TP slice", id="kw0-parallel slice"),
+    pytest.param({"pipeline_microbatches": 2,
+                  "mesh": mesh_lib.Mesh((torch.device("cpu"),))},
+                 ValueError, "a 'pipe' axis", id="kw1-parallel slice"),
     # the data slice is ported: a real dataset now needs its data_root
     pytest.param({"recipe": "ade_semantic"}, ValueError, "data_root",
                  id="kw2-data slice"),

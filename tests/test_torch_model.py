@@ -182,7 +182,8 @@ def test_bf16_folded_cast_matches_jax(golden_setup):
 
 
 def test_later_slices_raise():
-    """Meshes still raise (the parallel slice); train mode (with or without
+    """Tensor-parallel meshes still raise (a later slice), a data mesh
+    runs; train mode (with or without
     remat) now runs and returns the new running stats of every BN, and
     int8 serving (the serving-extras slice) quantizes every conv, its
     calibration refusing a run that recorded nothing."""
@@ -198,8 +199,18 @@ def test_later_slices_raise():
                                        remat_attention=remat),
             dropout_generator=torch.Generator().manual_seed(0))
         assert set(new_state) == set(state)
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        tmu.apply(params, state, x, cfg=cfg, mesh=object())
+    # a data mesh is accepted (one rank: the forward without one); a
+    # 'model' axis, tensor parallelism, is the slice still to port
+    from maskunet_tpu_torch.parallel import mesh as mesh_lib
+    with torch.no_grad():
+        alone = tmu.apply(params, state, x, cfg=cfg)[0].semantic
+        on_mesh = tmu.apply(params, state, x, cfg=cfg,
+                            mesh=mesh_lib.make_mesh(1, devices=["cpu"])
+                            )[0].semantic
+    assert torch.equal(alone, on_mesh)
+    with pytest.raises(NotImplementedError, match="TP slice"):
+        tmu.apply(params, state, x, cfg=cfg,
+                  mesh=mesh_lib.Mesh((torch.device("cpu"),) * 2, n_model=2))
     quantized = tmu.quantize_params_for_inference(params)
     assert quantized["final_layer.0.kernel_q"].dtype == torch.int8
     assert "final_layer.0.weight" not in quantized

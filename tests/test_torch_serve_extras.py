@@ -132,8 +132,11 @@ def test_artifact_refuses_what_it_fixed(flags, capsys):
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--recipe", "ade_semantic", "--n-data", "2"], "parallel slice"),
-    (["--artifact", "nowhere", "--n-data", "2"], "parallel slice"),
+    # more replicas than the host has cards (the card default)
+    (["--recipe", "ade_semantic", "--n-data", "2"],
+     "--n-data 2: mesh needs 2 devices"),
+    (["--artifact", "nowhere", "--n-data", "2"],
+     "--n-data cannot be combined with --artifact"),
     ([], "--recipe is required unless --artifact is given")])
 def test_serve_refusals(argv, message, capsys):
     with pytest.raises(SystemExit) as e:
