@@ -120,8 +120,8 @@ final result):
 17. recipes: the port's `make_fake_dataset` writes the ADE (151
     classes), COCO (133 panoptic categories) and Cityscapes (19) layouts,
     16 training and 8 validation images of 96 px; each of the nine
-    recipes (batch capped at 8, 128x128, bf16) trains 1 epoch through the
-    readers with validation, counters zeroed before each: K2 and K4 6
+    recipes (batch capped at 8, 128x128, bf16) trains 1 epoch on 8 of
+    the training images through the readers with validation, counters zeroed before each: K2 and K4 6
     times a step, K1 6 times a validation batch of each pass, nothing
     else; a finite loss and val_miou (val_pq, val_ap); img/s.
 18. predict: `predict_directory` on the card with the ade_panoptic state
@@ -162,21 +162,25 @@ final result):
     naming the device count, as JAX's pipeline mesh refuses one device.
 24. dp_train: two gloo ranks on the one card (NCCL refuses two ranks on
     one GPU), each on 4 rows of a global batch of 8 (c_out 150, 128x128,
-    the recipe's cached masks), f32 then bf16, SGD: 2 steps a rank, each
-    launching K2 6 and K4 6; a DP eval step, K1 6 a rank. Against the
+    the recipe's cached masks), f32 then bf16, SGD: 1 f32 step and 2 bf16
+    steps a rank, each launching K2 6 and K4 6; a DP eval step, K1 6 a
+    rank. The same spawn of two ranks then runs the dp x pp step of 26
+    and the parts of 28 and 29 (one CUDA init and library load a rank). Against the
     one-process step on the same global batch and state: loss and mIoU
     within 1%, the running stats, the f32 updates per tensor (cosine >=
     0.99) and the bf16 rule of phase 6 against the f32 update. Wall and
     device ms of each rank's step (two ranks share the card's SMs: no
     speedup is claimed).
-25. dp_nccl: one NCCL rank on the card runs the DP step through
-    `make_mesh(n_data=1)`; it equals the step with no mesh (f32).
+25. dp_nccl: one NCCL rank on the card (this process, in a group it
+    destroys after) runs the DP step through `make_mesh(n_data=1)`; it
+    equals the step with no mesh (f32).
 26. pipeline: `pipeline_apply` with both stages on cuda:0 (two streams,
     the decoder issued from a worker thread), 2 microbatches of 4: the
     forward and running stats, and the pipelined step's SGD update (f32),
     equal the sequential per-microbatch loop; a bf16 step launches K2 24
-    (12 and their recompute under torch.utils.checkpoint) and K4 12; its
-    wall and device ms and the measured overlap of the two stage streams;
+    (12 and their recompute under torch.utils.checkpoint) and K4 12; the
+    wall ms of 2 steps, the device ms and the measured overlap of the two
+    stage streams in a profiled one;
     then one dp x pp step (2 ranks x 2 microbatches of 2 rows) against the
     one-process sequential loop.
 27. dp_serve: `build_model_runner` over a 2-replica mesh on cuda:0 answers
@@ -185,6 +189,21 @@ final result):
     computation of each replica's rows (the 8-row runner within the
     serving agreement bound: bf16 rounds a batch's last row otherwise);
     `serve --n-data 2` on this one-card host exits 2 with one line.
+28. tp: a 1x2 (data, model) mesh of the two ranks of 24, each computing
+    half the output channels of bottom1's and bottom2's convs on the
+    whole global batch of 8, f32 then bf16, SGD, with 24's checks against
+    the same one-process steps (K2 6 and K4 6 a rank a step, K1 6 a rank
+    an eval step); bottom3's output whole on each rank (8 x 16 x 16 x
+    256); wall and device ms of a step; then `build_model_runner` over a
+    1x2 mesh that this process drives (f32): K1 6 a forward, maps as the
+    single-device runner's.
+29. ring: ring attention at attn6's shape ([8, 16384, 64], 8,192 tokens a
+    rank, a fully-masked batch row) over the two ranks of 24: the forward
+    in f32 and bf16 against the port's plain masked attention at the
+    kernels' tolerances, no NaN; the f32 gradients of the token shards
+    and the parameters within 5e-4 of the plain ones; wall and device ms;
+    the transport (gloo's send and receive take host memory only, so the
+    shards cross through host buffers).
 
 It imports torch, numpy and the port, nothing of JAX.
 """
@@ -290,6 +309,7 @@ RECIPE_NAMES = ("ade_semantic", "ade_instance", "ade_panoptic",
                 "coco_semantic", "coco_instance", "coco_panoptic")
 FAKE_TRAIN = 16
 FAKE_VAL = 8
+RECIPE_FRACTION = 0.5         # each recipe trains on 8 of the 16
 DATA_RATE_SIDE = 512          # ADE20K's usual image side
 DATA_RATE_IMAGES = 64
 PREDICT_IMAGES = 11           # a full batch of 8 and a padded one of 3
@@ -1969,13 +1989,15 @@ def fake_recipe(name: str):
 
 def phase_recipes(card: str, roots: dict) -> tuple:
     """The nine recipes on the fake layouts (phase 17): `train` for one
-    epoch with validation, counters zeroed before each: K2 and K4 6 times
+    epoch on RECIPE_FRACTION of the training images with validation,
+    counters zeroed before each: K2 and K4 6 times
     a step, K1 6 times a validation batch of each pass (the loss pass, and
     the evaluator's for instance and panoptic recipes), nothing else; a
     finite loss and val_miou (and val_pq, val_ap). Returns (K1, K2 and
     K4's launches summed over the nine, the ade_panoptic state)."""
     kw = dict(eval_every=1, compute_dtype="bfloat16", verbose=False,
-              save_checkpoints=False, device="cuda")
+              save_checkpoints=False, device="cuda",
+              data_fraction=RECIPE_FRACTION)
     zeros = dict.fromkeys(counted_wrappers(), 0)
     total = dict.fromkeys(("K1", "K2", "K4"), 0)
     pan_state = None
@@ -1987,7 +2009,7 @@ def phase_recipes(card: str, roots: dict) -> tuple:
               f"recipes {name}: {len(train_ds)} training and "
               f"{len(val_ds)} validation images, not {FAKE_TRAIN} and "
               f"{FAKE_VAL}")
-        steps = len(train_ds) // rec.batch_size
+        steps = round(len(train_ds) * RECIPE_FRACTION) // rec.batch_size
         val_batches = min(8, -(-len(val_ds) // rec.batch_size))
         passes = 1 if rec.task == "semantic" else 2
         workdir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
@@ -2743,6 +2765,7 @@ DP_RANKS = 2                  # two ranks share cuda:0 (gloo)
 DP_STEPS = 2
 DP_STATE_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
 PIPE_MICRO = 2                # microbatches of BATCH // PIPE_MICRO rows
+PIPE_TIMED_STEPS = 2
 DP_DEADLINE_S = 600.0
 
 
@@ -2875,44 +2898,32 @@ def state_rel_diff(a: dict, b: dict) -> float:
                      / b[k].abs().max().clamp(min=1.0)) for k in b)
 
 
-def dp_train_rank(rank: int) -> dict:
+def dp_train_rank(rank: int, refs: dict) -> dict:
     """Phase dp_train, one rank: the DP step on its 4 rows of the global
-    batch of 8 (f32, then bf16), DP_STEPS + 1 steps each (the last one
-    profiled), and a DP eval step. Rank 0 also runs the one-process step
-    on the global batch and compares: loss, mIoU, the per-tensor cosine of
-    the SGD updates (f32), the bf16 rule of `step_grads` against the f32
-    one-process update, and the BN running stats."""
+    batch of 8, f32 once, then bf16 DP_STEPS times and once profiled, and
+    a DP eval step. Rank 0 also runs the one-process step on the global
+    batch and compares: loss, mIoU, the per-tensor cosine of the SGD
+    updates (f32), the bf16 rule of `step_grads` against the f32
+    one-process update, and the BN running stats; it keeps the
+    one-process steps in `refs` (phase tp compares with them too)."""
     from maskunet_tpu_torch.parallel import mesh as mesh_lib
     mesh = mesh_lib.make_mesh(DP_RANKS, devices=["cuda:0"] * DP_RANKS)
     task = train_step.TaskConfig()
     out = {}
-    truth = None
     for dtype in ("float32", "bfloat16"):
         cfg, ts, batch = dp_setup(dtype)
         mesh_lib.put_replicated(mesh, ts)
         plans = mu.precompute_mask_plans(ts.masks)
         step = train_step.make_train_step(cfg, task, mask_plans=plans,
                                           device="cuda:0", mesh=mesh)
-        before = snapshot(ts)
-        runs = []
-        for i in range(DP_STEPS):
-            ts, metrics, launches, wall = step_once(step, ts, batch)
-            runs.append((float(metrics["loss"]), float(metrics["miou"]),
-                         launches, wall))
-            if i == 0:
-                update = update_of(ts, before)
-                state = {k: v.clone() for k, v in ts.model_state.items()}
-        device = profiled_device_ms(lambda: step(ts, batch))
+        r, update, state = timed_steps(step, ts, batch, dtype)
         eval_step = train_step.make_eval_step(cfg, task, device="cuda:0",
                                               mesh=mesh)
         zero_launches()
         result = eval_step(ts, batch, plans)
         torch.cuda.synchronize()
-        r = {"losses": [x[0] for x in runs], "mious": [x[1] for x in runs],
-             "launches": [x[2] for x in runs],
-             "wall_ms": [x[3] for x in runs], "device_ms": device,
-             "eval_launches": kernel_launches(),
-             "eval_pred_rows": int(result["pred"].shape[0])}
+        r.update(eval_launches=kernel_launches(),
+                 eval_pred_rows=int(result["pred"].shape[0]))
         if rank == 0:
             cfg, ref, batch = dp_setup(dtype)
             ref_before = snapshot(ref)
@@ -2920,72 +2931,140 @@ def dp_train_rank(rank: int) -> dict:
                 cfg, task, mask_plans=mu.precompute_mask_plans(ref.masks),
                 device="cuda:0")
             ref, m = ref_step(ref, batch)
-            ref_update = update_of(ref, ref_before)
-            r.update(ref_loss=float(m["loss"]), ref_miou=float(m["miou"]),
-                     state_rel_diff=state_rel_diff(state, ref.model_state))
-            if dtype == "float32":
-                truth = ref_update
-                r["update_min_cos"], r["update_min_cos_tensor"] = \
-                    compare_updates(update, ref_update)
-            else:
-                signal = {k for k in truth
-                          if cos(ref_update[k], truth[k]) >= BF16_SIGNAL_COS}
-                margin = {k: cos(update[k], truth[k])
-                          - cos(ref_update[k], truth[k]) for k in signal}
-                worst = min(margin, key=margin.get)
-                r.update(bf16_signal_tensors=len(signal),
-                         bf16_worst_margin=margin[worst],
-                         bf16_worst_margin_tensor=worst)
-            del ref, ref_update
+            refs[dtype] = {"loss": float(m["loss"]),
+                           "miou": float(m["miou"]),
+                           "update": update_of(ref, ref_before),
+                           "state": ref.model_state}
+            r.update(compare_to_one_process(update, state, refs, dtype))
+            del ref
         out[dtype] = r
         del ts, update
     return out
 
 
-def phase_dp_train(card: str) -> dict:
-    """Phase 24, dp_train: two gloo ranks on the one card, each on 4 rows
-    of the global batch of 8 (c_out 150, 128x128), against the one-process
-    step on the same global batch and state."""
-    t0 = time.monotonic()
-    r0, r1 = spawn_ranks(dp_train_rank, DP_RANKS)
+def timed_steps(step, ts, batch, dtype: str) -> tuple:
+    """One f32 step, or DP_STEPS bf16 steps and a profiled one: (their
+    losses, mIoUs, launches and walls, the first update, the state after
+    it)."""
+    before = snapshot(ts)
+    runs = []
+    for i in range(1 if dtype == "float32" else DP_STEPS):
+        ts, metrics, launches, wall = step_once(step, ts, batch)
+        runs.append((float(metrics["loss"]), float(metrics["miou"]),
+                     launches, wall))
+        if i == 0:
+            update = update_of(ts, before)
+            state = {k: v.clone() for k, v in ts.model_state.items()}
+    r = {"losses": [x[0] for x in runs], "mious": [x[1] for x in runs],
+         "launches": [x[2] for x in runs], "wall_ms": [x[3] for x in runs]}
+    if dtype == "bfloat16":
+        r["device_ms"] = profiled_device_ms(lambda: step(ts, batch))
+    return r, update, state
+
+
+def compare_to_one_process(update: dict, state: dict, refs: dict,
+                           dtype: str) -> dict:
+    """A step's first update and running stats against the one-process
+    step's in `refs`: f32 the least per-tensor cosine of the updates, bf16
+    the worst margin of `step_grads`' rule against the f32 one-process
+    update."""
+    ref = refs[dtype]
+    r = {"ref_loss": ref["loss"], "ref_miou": ref["miou"],
+         "state_rel_diff": state_rel_diff(state, ref["state"])}
+    if dtype == "float32":
+        r["update_min_cos"], r["update_min_cos_tensor"] = \
+            compare_updates(update, ref["update"])
+    else:
+        truth = refs["float32"]["update"]
+        signal = {k for k in truth
+                  if cos(ref["update"][k], truth[k]) >= BF16_SIGNAL_COS}
+        margin = {k: cos(update[k], truth[k])
+                  - cos(ref["update"][k], truth[k]) for k in signal}
+        worst = min(margin, key=margin.get)
+        r.update(bf16_signal_tensors=len(signal),
+                 bf16_worst_margin=margin[worst],
+                 bf16_worst_margin_tensor=worst)
+    return r
+
+
+def parallel_rank(rank: int) -> dict:
+    """One rank of the spawn of DP_RANKS gloo ranks sharing cuda:0 that
+    phases dp_train, pipeline (its dp x pp step), tp and ring share (one
+    spawn: one CUDA init and one library load a rank), each part on a
+    mesh of its own, timed."""
+    refs, out = {}, {}
+    parts = (("dp_train", lambda: dp_train_rank(rank, refs)),
+             ("dp_pp", lambda: dp_pp_rank(rank)),
+             ("tp", lambda: tp_rank(rank, refs)),
+             ("ring", lambda: ring_rank(rank)))
+    for name, fn in parts:
+        t0 = time.monotonic()
+        out[name] = fn()
+        torch.cuda.empty_cache()
+        out[name]["seconds"] = time.monotonic() - t0
+    return out
+
+
+def check_dp_like(phase: str, r0: dict, r1: dict,
+                  want_eval_rows: int) -> None:
+    """dp_train's checks of a parallel step against the one-process step,
+    for each dtype: K2 6 and K4 6 a rank a step, K1 6 a rank an eval
+    step on its rows, the ranks' losses equal and finite, loss and mIoU
+    within TRAIN_LOSS_RTOL, the BN stats within DP_STATE_RTOL; the f32
+    update's least cosine, the bf16 rule's worst margin."""
     want = dict.fromkeys(counted_wrappers(), 0)
     for dtype in ("float32", "bfloat16"):
         a, b = r0[dtype], r1[dtype]
         check(all(l == {**want, "K2": 6, "K4": 6}
                   for r in (a, b) for l in r["launches"]),
-              f"dp_train {dtype}: a step of each rank launches K2 6, K4 6: "
+              f"{phase} {dtype}: a step of each rank launches K2 6, K4 6: "
               f"{a['launches']} {b['launches']}")
         check(all(r["eval_launches"] == {**want, "K1": 6}
-                  and r["eval_pred_rows"] == BATCH // DP_RANKS
+                  and r["eval_pred_rows"] == want_eval_rows
                   for r in (a, b)),
-              f"dp_train {dtype}: a DP eval step launches K1 6 a rank on its "
-              f"4 rows: {a['eval_launches']}")
+              f"{phase} {dtype}: an eval step launches K1 6 a rank on its "
+              f"{want_eval_rows} rows: {a['eval_launches']}")
         check(a["losses"] == b["losses"] and all(np.isfinite(a["losses"])),
-              f"dp_train {dtype}: the ranks' losses agree: {a['losses']} "
+              f"{phase} {dtype}: the ranks' losses agree: {a['losses']} "
               f"{b['losses']}")
         check(abs(a["losses"][0] - a["ref_loss"])
               <= TRAIN_LOSS_RTOL * abs(a["ref_loss"])
               and abs(a["mious"][0] - a["ref_miou"])
               <= TRAIN_LOSS_RTOL * abs(a["ref_miou"]),
-              f"dp_train {dtype}: loss and mIoU of the one-process step "
+              f"{phase} {dtype}: loss and mIoU of the one-process step "
               f"({a['losses'][0]} vs {a['ref_loss']}, {a['mious'][0]} vs "
               f"{a['ref_miou']})")
         check(a["state_rel_diff"] <= DP_STATE_RTOL[dtype],
-              f"dp_train {dtype}: BN running stats of the one-process step "
+              f"{phase} {dtype}: BN running stats of the one-process step "
               f"({a['state_rel_diff']})")
     check(r0["float32"]["update_min_cos"] >= TRAIN_GRAD_COS,
-          f"dp_train: f32 SGD updates, per tensor, against one process: "
+          f"{phase}: f32 SGD updates, per tensor, against one process: "
           f"{r0['float32']['update_min_cos']}")
     check(r0["bfloat16"]["bf16_worst_margin"] >= -BF16_COS_MARGIN,
-          "dp_train: bf16 updates as close to the f32 one-process update as "
-          "the bf16 one-process update")
+          f"{phase}: bf16 updates as close to the f32 one-process update "
+          f"as the bf16 one-process update")
+
+
+def phase_dp_train(card: str) -> tuple:
+    """Phase 24, dp_train: two gloo ranks on the one card, each on 4 rows
+    of the global batch of 8 (c_out 150, 128x128), against the one-process
+    step on the same global batch and state. The spawn runs the parts of
+    phases pipeline, tp and ring too (`parallel_rank`); returns (K1, K2,
+    K4 launches, the ranks' results)."""
+    t0 = time.monotonic()
+    parallel = spawn_ranks(parallel_rank, DP_RANKS)
+    r0, r1 = (r["dp_train"] for r in parallel)
+    check_dp_like("dp_train", r0, r1, BATCH // DP_RANKS)
     emit(phase="dp_train", card=card, ranks=DP_RANKS, global_batch=BATCH,
-         seconds=time.monotonic() - t0, rank0=r0, rank1=r1,
+         seconds=r0["seconds"], spawn_seconds=time.monotonic() - t0,
+         part_seconds={k: [r[k]["seconds"] for r in parallel]
+                       for k in parallel[0]},
+         rank0=r0, rank1=r1,
          note="two ranks share one card's SMs: their img/s says nothing "
               "of DP on two cards")
-    return {"K2": r0["bfloat16"]["launches"][0]["K2"],
-            "K4": r0["bfloat16"]["launches"][0]["K4"],
-            "K1": r0["bfloat16"]["eval_launches"]["K1"]}
+    return ({"K2": r0["bfloat16"]["launches"][0]["K2"],
+             "K4": r0["bfloat16"]["launches"][0]["K4"],
+             "K1": r0["bfloat16"]["eval_launches"]["K1"]}, parallel)
 
 
 def dp_nccl_rank(rank: int) -> dict:
@@ -3016,8 +3095,19 @@ def dp_nccl_rank(rank: int) -> dict:
 
 def phase_dp_nccl(card: str) -> None:
     """Phase 25, dp_nccl: NCCL's init and collectives on the card, one
-    rank (NCCL refuses two ranks on one GPU)."""
-    (r,) = spawn_ranks(dp_nccl_rank, 1, backend="nccl")
+    rank (NCCL refuses two ranks on one GPU): this process, in a group of
+    its own that it destroys after."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from maskunet_tpu_torch.parallel import mesh as mesh_lib
+    mesh_lib.init_distributed(f"127.0.0.1:{free_port()}", 1, 0, "nccl",
+                              timeout=datetime.timedelta(seconds=300))
+    try:
+        r = dp_nccl_rank(0)
+    finally:
+        dist.destroy_process_group()
     want = dict.fromkeys(counted_wrappers(), 0)
     emit(phase="dp_nccl", card=card, **r)
     check(r["backend"] == "nccl" and r["device"] == "cuda:0",
@@ -3116,13 +3206,14 @@ def dp_pp_rank(rank: int) -> dict:
     return out
 
 
-def phase_pipeline(card: str) -> dict:
+def phase_pipeline(card: str, parallel: list) -> dict:
     """Phase 26, pipeline: the 2-stage GPipe with both stages on cuda:0
     (two CUDA streams, the decoder issued from a worker thread), M = 2
     microbatches of 4. `pipeline_apply`'s forward and running stats, and
     the pipelined step's update (f32, SGD), against the sequential loop;
     then the bf16 step: launches, wall and device ms, and the overlap of
-    the two stage streams in a profiled step; then one dp x pp step."""
+    the two stage streams in a profiled step; then one dp x pp step (run
+    in `parallel`, the ranks of dp_train's spawn)."""
     from maskunet_tpu_torch.parallel import pipeline as pp
     t0 = time.monotonic()
     mesh = pp.make_pipe_mesh(devices=["cuda:0", "cuda:0"])
@@ -3183,7 +3274,7 @@ def phase_pipeline(card: str) -> dict:
         device="cuda", pipe_mesh=mesh, pipe_microbatches=PIPE_MICRO)
     ts, m, launches, _ = step_once(step, ts, batch)
     walls = []
-    for _ in range(5):
+    for _ in range(PIPE_TIMED_STEPS):
         ts, m, _, wall = step_once(step, ts, batch)
         walls.append(wall)
     from torch.profiler import ProfilerActivity, profile
@@ -3200,7 +3291,7 @@ def phase_pipeline(card: str) -> dict:
     loss_bf16 = float(m["loss"])
     del ts, step
 
-    dpp = spawn_ranks(dp_pp_rank, DP_RANKS)
+    dpp = [r["dp_pp"] for r in parallel]
     emit(phase="pipeline", card=card, microbatches=PIPE_MICRO,
          microbatch_rows=BATCH // PIPE_MICRO,
          forward_rel_err_vs_sequential=fwd_err,
@@ -3339,6 +3430,261 @@ def phase_dp_serve(card: str) -> dict:
     return {"K1": one["K1"]}
 
 
+# --- tensor parallelism and ring attention (phases 28-29) -------------------
+
+# ring attention at attn6's shape: 128x128 tokens at C 64, batch 8, each of
+# the DP_RANKS ranks holding 8,192 tokens; gradients of a fixed weighting
+# of the output, f32. The shards' gradients against the plain attention's
+# (f32 sums over 2 x 16,384 tokens in another order), as a share of each
+# tensor's largest magnitude: JAX's gradient tolerance
+# (tests/test_ring_attention.py:61)
+# TP serving in f32 against one device: the shards' convs have half the
+# output channels, for which cuDNN may choose another algorithm, so an
+# argmax near a tie may flip: at most 1 pixel in 10,000
+TP_SERVE_AGREE = 0.9999
+RING_SHAPE = (BATCH, IMG * IMG, 64)
+RING_GRAD_RTOL = 5e-4
+# the key projection's bias adds q . b to every score of a query, which
+# the softmax cancels: its gradient is zero in exact arithmetic, so both
+# paths' rounding noise is held to RING_GRAD_RTOL of the key weight's
+# gradient instead
+RING_ZERO_GRAD = {"key.bias": "key.weight"}
+
+
+def tp_rank(rank: int, refs: dict) -> dict:
+    """Phase tp, one rank: model index `rank` of a 1x2 (data, model) mesh
+    on cuda:0, the whole global batch of 8. The TP step (f32 once, bf16
+    DP_STEPS times and once profiled) against the one-process steps of
+    dp_train (rank 0's `refs`), a TP eval step's launches, and the
+    bottleneck's output (bottom3's, whole on each rank) of the TP eval
+    forward."""
+    from maskunet_tpu_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh(1, n_model=DP_RANKS,
+                              devices=["cuda:0"] * DP_RANKS)
+    task = train_step.TaskConfig()
+    out = {"data_index": mesh.rank, "model_index": mesh.model_rank,
+           "lead": mesh_lib.is_lead(mesh)}
+    for dtype in ("float32", "bfloat16"):
+        cfg, ts, batch = dp_setup(dtype)
+        mesh_lib.put_replicated(mesh, ts)
+        plans = mu.precompute_mask_plans(ts.masks)
+        step = train_step.make_train_step(cfg, task, mask_plans=plans,
+                                          device="cuda:0", mesh=mesh)
+        r, update, state = timed_steps(step, ts, batch, dtype)
+        eval_step = train_step.make_eval_step(cfg, task, device="cuda:0",
+                                              mesh=mesh)
+        zero_launches()
+        result = eval_step(ts, batch, plans)
+        torch.cuda.synchronize()
+        r.update(eval_launches=kernel_launches(),
+                 eval_pred_rows=int(result["pred"].shape[0]))
+        with torch.no_grad():
+            (_, _, _, x4), _ = mu.encode(
+                ts.params, ts.model_state,
+                torch.from_numpy(batch["image"]).cuda(), cfg=cfg,
+                masks=ts.masks, mask_plans=plans, mesh=mesh)
+        r["bottleneck_shape"] = list(x4.shape)
+        if rank == 0:
+            r.update(compare_to_one_process(update, state, refs, dtype))
+        out[dtype] = r
+        del ts, update
+    return out
+
+
+def phase_tp(card: str, parallel: list) -> dict:
+    """Phase 28, tp: tensor parallelism over a 1x2 (data, model) mesh, the
+    two gloo ranks of dp_train's spawn sharing cuda:0, each computing half
+    of the channels of bottom1's and bottom2's convs on the whole global
+    batch of 8 (c_out 150, 128x128), against the one-process step on the
+    same batch and state with dp_train's checks; K1 6 a rank an eval step
+    on all 8 rows; bottom3's output whole on each rank (256 channels at
+    16x16); rank 0 alone the lead. Then serving on a 1x2 mesh that this
+    process drives (`tp_serving`)."""
+    r0, r1 = (r["tp"] for r in parallel)
+    check_dp_like("tp", r0, r1, BATCH)
+    check([r0["data_index"], r0["model_index"], r1["data_index"],
+           r1["model_index"]] == [0, 0, 0, 1] and r0["lead"]
+          and not r1["lead"],
+          f"tp: ranks 0 and 1 are model indices 0 and 1 of data index 0, "
+          f"rank 0 the lead: {r0} {r1}")
+    check(all(r[d]["bottleneck_shape"] == [BATCH, IMG // 8, IMG // 8, 256]
+              for r in (r0, r1) for d in ("float32", "bfloat16")),
+          f"tp: bottom3's output on each rank: "
+          f"{r0['float32']['bottleneck_shape']}")
+    serving = tp_serving()
+    emit(phase="tp", card=card, mesh={"data": 1, "model": DP_RANKS},
+         global_batch=BATCH, seconds=r0["seconds"], rank0=r0, rank1=r1,
+         serving=serving,
+         note="two model ranks share one card's SMs, each running the "
+              "whole step but half the bottleneck: their times show the "
+              "path and its gathers through gloo, never a TP speedup")
+    zeros = dict.fromkeys(counted_wrappers(), 0)
+    check(serving["launches"] == {**zeros, "K1": 6 * len(serving["equal"])}
+          and serving["agreement"] >= TP_SERVE_AGREE,
+          f"tp serving: K1 6 a forward, f32 maps as one device's: "
+          f"{serving}")
+    return {"K2": r0["bfloat16"]["launches"][0]["K2"],
+            "K4": r0["bfloat16"]["launches"][0]["K4"],
+            "K1": r0["bfloat16"]["eval_launches"]["K1"]}
+
+
+def tp_serving() -> dict:
+    """`build_model_runner` over a 1x2 (data, model) mesh that this process
+    drives, both shards on cuda:0, against the single-device runner (f32,
+    two batches of 8): launches, maps equal, pixel agreement."""
+    from maskunet_tpu_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh(1, n_model=DP_RANKS,
+                              devices=["cuda:0"] * DP_RANKS)
+    rng = np.random.default_rng(6)
+    batches = [rng.integers(0, 256, (BATCH, IMG, IMG, 3)).astype(np.uint8)
+               for _ in range(2)]
+    kw = dict(compute_dtype="float32", batch_size=BATCH, device="cuda")
+    single, _ = serve.build_model_runner("ade_semantic", NUM_CLASSES, None,
+                                         **kw)
+    tp, _ = serve.build_model_runner("ade_semantic", NUM_CLASSES, None,
+                                     mesh=mesh, **kw)
+    want = [single(b).cpu().numpy() for b in batches]
+    torch.cuda.synchronize()
+    zero_launches()
+    got = [tp(b).cpu().numpy() for b in batches]
+    launches = kernel_launches()
+    return {"launches": launches,
+            "equal": [bool(np.array_equal(g, w)) for g, w in zip(got, want)],
+            "agreement": float(np.mean([(g == w).mean()
+                                        for g, w in zip(got, want)]))}
+
+
+def gather_tokens(t: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' token shards put together along dim 1."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=1)
+
+
+def wall_ms(fn, n: int = 3) -> float:
+    """Best host-clock ms of `n` synchronised calls, after one."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def ring_rank(rank: int) -> dict:
+    """Phase ring, one rank: `ring_spatial_attention` at attn6's shape on
+    this rank's 8,192 tokens, the global key mask with batch row 1 fully
+    masked; forward in f32 and bf16, and the f32 gradients of a fixed
+    weighting of the output. Rank 0 compares the gathered output and
+    gradients with the port's plain masked attention on the global
+    tokens, one batch row at a time (its [L, L] scores fit)."""
+    from maskunet_tpu_torch.ops import attention
+    from maskunet_tpu_torch.parallel import mesh as mesh_lib
+    from maskunet_tpu_torch.parallel import ring_attention as ring
+    mesh = mesh_lib.make_mesh(DP_RANKS, devices=["cuda:0"] * DP_RANKS)
+    b, l, c = RING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    params = {k: v.cuda() for k, v in attention.attention_init(
+        torch.Generator().manual_seed(31), c).items()}
+    tokens = torch.randn(b, l, c, generator=gen, device="cuda")
+    weight = torch.randn(b, l, c, generator=gen, device="cuda")
+    mask = attention.random_key_mask(gen, b, l)
+    mask[1] = False
+    lmask = mesh_lib.shard_tokens(mesh, mask)
+    out = {"transport": ring.transport(mesh.group, tokens),
+           "tokens_per_rank": l // DP_RANKS}
+
+    def dense(p, t, m):
+        return torch.cat([attention.masked_attention_dense(
+            p, t[i:i + 1], m[i:i + 1]) for i in range(t.shape[0])])
+
+    for dtype in (torch.float32, torch.bfloat16):
+        local = mesh_lib.shard_tokens(mesh, tokens.to(dtype))
+        with torch.no_grad():
+            def fwd():
+                return ring.ring_spatial_attention(params, local, lmask,
+                                                   mesh=mesh)
+            y = gather_tokens(fwd(), mesh.group)
+            r = {"wall_ms": wall_ms(fwd),
+                 "device_ms": profiled_device_ms(fwd),
+                 "finite": bool(torch.isfinite(y).all())}
+            if rank == 0:
+                want = dense(params, tokens.to(dtype), mask)
+                r["agreement"] = agreement(y, want)
+                r["plain_wall_ms"] = wall_ms(
+                    lambda: dense(params, tokens.to(dtype), mask), 1)
+                del want
+        out[str(dtype).split(".")[1]] = r
+        del y
+
+    # f32 gradients: the token shards' and the parameters' (summed)
+    p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    local = mesh_lib.shard_tokens(mesh, tokens).clone().requires_grad_(True)
+    lweight = mesh_lib.shard_tokens(mesh, weight)
+    keys = list(p)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = ring.ring_spatial_attention(p, local, lmask, mesh=mesh)
+    grads = torch.autograd.grad((y * lweight).sum(),
+                                [local] + [p[k] for k in keys])
+    torch.cuda.synchronize()
+    r = {"fwd_bwd_wall_ms": (time.perf_counter() - t0) * 1e3,
+         "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    got = {"tokens": gather_tokens(grads[0], mesh.group)}
+    for k, g in zip(keys, grads[1:]):
+        got[k] = mesh_lib.all_reduce_(g.clone(), mesh.group)
+    del y, grads
+    if rank == 0:
+        want = {k: torch.zeros_like(v) for k, v in params.items()}
+        rows = []
+        for i in range(b):
+            pw = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+            t = tokens[i:i + 1].clone().requires_grad_(True)
+            yd = attention.masked_attention_dense(pw, t, mask[i:i + 1])
+            g = torch.autograd.grad((yd * weight[i:i + 1]).sum(),
+                                    [t] + [pw[k] for k in keys])
+            rows.append(g[0])
+            for k, gk in zip(keys, g[1:]):
+                want[k] += gk
+        want["tokens"] = torch.cat(rows)
+        r["grad_rel_err"] = {
+            k: float((got[k] - want[k]).abs().max() / want[
+                RING_ZERO_GRAD.get(k, k)].abs().max().clamp(min=1e-30))
+            for k in want}
+    out["float32_grads"] = r
+    return out
+
+
+def phase_ring(card: str, parallel: list) -> None:
+    """Phase 29, ring: ring attention at attn6's shape over the two gloo
+    ranks of dp_train's spawn sharing cuda:0, 8,192 tokens a rank: the
+    forward in f32 and bf16 against the port's plain masked attention on
+    the global tokens at the kernels' tolerances, the f32 gradients
+    within RING_GRAD_RTOL, no NaN with a fully-masked row; the transport
+    named."""
+    r0, r1 = (r["ring"] for r in parallel)
+    emit(phase="ring", card=card, shape=list(RING_SHAPE), ranks=DP_RANKS,
+         seconds=r0["seconds"], rank0=r0, rank1=r1,
+         note="two ranks share one card: the times show the ring and its "
+              "transport, not a sequence-parallel speedup")
+    for dtype in ("float32", "bfloat16"):
+        check(r0[dtype]["agreement"]["ok"] and r0[dtype]["finite"]
+              and r1[dtype]["finite"],
+              f"ring {dtype}: the forward equals the plain attention, no "
+              f"NaN with a fully-masked row: {r0[dtype]['agreement']}")
+    errs = r0["float32_grads"]["grad_rel_err"]
+    check(max(errs.values()) <= RING_GRAD_RTOL,
+          f"ring: f32 gradients of the token shards and the parameters "
+          f"against the plain attention's (key.bias's against the key "
+          f"weight's scale): {errs}")
+    check(r0["transport"] == r1["transport"] and "gloo" in r0["transport"],
+          f"ring: the transport of two gloo ranks: {r0['transport']}")
+
+
 def kernel_entry(name, source, replaces, launches, err, t, **extra) -> dict:
     return {**extra, "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -3401,10 +3747,13 @@ def main() -> int:
         phase_data_rate(card, os.path.join(data_dir, "ade512"))
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
-    dp = phase_dp_train(card)
+    dp, parallel = phase_dp_train(card)
     phase_dp_nccl(card)
-    pipe = phase_pipeline(card)
+    pipe = phase_pipeline(card, parallel)
     dp_serve = phase_dp_serve(card)
+    tp = phase_tp(card, parallel)
+    phase_ring(card, parallel)
+    del parallel
     kernel_online = phase_kernel_online()
     kernel_bwd_noclamp = phase_kernel_bwd_noclamp()
     safe = phase_safe(card)
@@ -3437,7 +3786,8 @@ def main() -> int:
                      launches_export=exported["K1"],
                      launches_int8=int8["K1"], launches_dp=dp["K1"],
                      launches_pipeline=pipe["K1"],
-                     launches_dp_serve=dp_serve["K1"]),
+                     launches_dp_serve=dp_serve["K1"],
+                     launches_tp=tp["K1"]),
         kernel_entry("flash_fwd_nomax_lse", fwd_src,
                      "maskunet_tpu/ops/flash_attention.py:267",
                      train_launches["K2"], kernel_lse["max_abs_err"],
@@ -3447,7 +3797,7 @@ def main() -> int:
                      launches_instance=instance["K2"],
                      launches_recipes=recipe_launches["K2"],
                      launches_dp=dp["K2"], launches_pipeline=pipe["K2"],
-                     launches_dp_serve=0),
+                     launches_dp_serve=0, launches_tp=tp["K2"]),
         kernel_entry("flash_fwd_online", online_src,
                      "maskunet_tpu/ops/flash_attention.py:111",
                      safe["K3"], kernel_online["max_abs_err"], online_totals,
@@ -3466,7 +3816,7 @@ def main() -> int:
                      launches_instance=instance["K4"],
                      launches_recipes=recipe_launches["K4"],
                      launches_dp=dp["K4"], launches_pipeline=pipe["K4"],
-                     launches_dp_serve=0),
+                     launches_dp_serve=0, launches_tp=tp["K4"]),
         kernel_entry("old_flash_fwd", online_src, "tools/softmax_ab.py:29",
                      tools["K5"]["launches"], tools["K5"]["max_abs_err"],
                      tools["K5"], bodies_bf16={"64": online_bodies["64"]}),

@@ -24,8 +24,20 @@ statistics over the mesh's process group (cross-replica BN). This is the
 counterpart of JAX's `_flash_mha_sharded` (maskunet_tpu/ops/
 flash_attention.py:570-587) too: there `shard_map` runs the Pallas kernel
 on each device's rows; here each rank launches K1/K2/K4 on its own rows,
-and the kernels are the single-device ones. A mesh with a 'model' axis
-(tensor parallelism) is refused: the ring-attention and TP slice.
+and the kernels are the single-device ones.
+
+A mesh with a 'model' axis (`n_model > 1`, tensor parallelism) shards the
+512-wide bottleneck as JAX's seam does (maskunet_tpu/models/
+maskattn_unet.py:366-371: bottom1's and bottom2's outputs channel-sharded
+over 'model', bottom3's whole): each model shard computes its
+1/n_model of the output channels of the four convs of bottom1 and bottom2
+and their BatchNorms (`_bottleneck_tp`), the channels are gathered before
+each conv whose input is sharded and before bottom3, and everything else
+runs whole on every model rank (the attention kernels too, on the data
+rank's rows, as JAX's `_flash_mha_sharded` replicates them over 'model').
+In a process group each rank computes its own shard; one process without
+a group (serving's mesh) runs every shard, each on its device, and
+gathers by copy.
 """
 
 from __future__ import annotations
@@ -195,14 +207,21 @@ def param_count(params: dict) -> int:
 # Forward
 # ---------------------------------------------------------------------------
 
-def _conv(p: dict, name: str, x: torch.Tensor) -> torch.Tensor:
-    """The conv `name`: int8 where `quantize_params_for_inference` left
-    its `kernel_q`, float otherwise."""
+def _conv(p: dict, name: str, x: torch.Tensor,
+          out: slice | None = None) -> torch.Tensor:
+    """The conv `name`, or its output channels `out` (on x's device): int8
+    where `quantize_params_for_inference` left its `kernel_q`, float
+    otherwise. The whole conv gets the parameter tensors themselves (the
+    calibration recorder knows a conv by its weight)."""
+    def get(key):
+        t = p.get(f"{name}.{key}")
+        return t if t is None or out is None else t[out].to(x.device)
+
     if f"{name}.kernel_q" in p:
-        return layers.conv2d_int8(p[f"{name}.kernel_q"], p[f"{name}.w_scale"],
-                                  p.get(f"{name}.bias"), x,
+        return layers.conv2d_int8(get("kernel_q"), get("w_scale"),
+                                  get("bias"), x,
                                   a_scale=p.get(f"{name}.a_scale"))
-    return layers.conv2d(p[f"{name}.weight"], p.get(f"{name}.bias"), x)
+    return layers.conv2d(get("weight"), get("bias"), x)
 
 
 class _BatchNorms:
@@ -216,15 +235,20 @@ class _BatchNorms:
         self.train, self.folded, self.group = train, folded, group
         self.new_state: dict[str, torch.Tensor] = {}
 
-    def __call__(self, name: str, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, name: str, x: torch.Tensor,
+                 channels: slice | None = None):
+        """BatchNorm `name` on x, or on its `channels` of the BatchNorm's
+        (on x's device; the new running stats are then those channels')."""
         if self.folded:
             return x
         p, s = self.params, self.state
-        args = (p[f"{name}.weight"], p[f"{name}.bias"],
-                s[f"{name}.running_mean"], s[f"{name}.running_var"], x)
+        args = [t if channels is None else t[channels].to(x.device)
+                for t in (p[f"{name}.weight"], p[f"{name}.bias"],
+                          s[f"{name}.running_mean"],
+                          s[f"{name}.running_var"])]
         if not self.train:
-            return layers.batchnorm(*args)
-        y, mean, var = layers.batchnorm_train(*args, group=self.group)
+            return layers.batchnorm(*args, x)
+        y, mean, var = layers.batchnorm_train(*args, x, group=self.group)
         self.new_state[f"{name}.running_mean"] = mean
         self.new_state[f"{name}.running_var"] = var
         return y
@@ -283,13 +307,64 @@ def _attn(params, i, x, masks, plans, cfg, train):
 
 
 def _check(train: bool, mesh, folded: bool):
-    """The BatchNorm group of `mesh` (its data axis), after the refusals."""
-    if mesh is not None and mesh.shape.get("model", 1) > 1:
-        from maskunet_tpu_torch.parallel.mesh import TP_SLICE
-        raise NotImplementedError(TP_SLICE)
+    """The BatchNorm group of `mesh` (its data axis), after the refusal."""
     if folded and train:
         raise ValueError("folded params are eval-only")
     return None if mesh is None else mesh.group
+
+
+# the bottleneck convs that the 'model' axis shards by output channels
+TP_CONVS = tuple(f"bottom{i}.conv_block.{k}" for i in (1, 2) for k in (0, 3))
+
+
+def tp_sharded(key: str) -> bool:
+    """Whether the parameter `key` is computed in slices over 'model':
+    every parameter of bottom1 and bottom2 (under TP its gradient on a
+    rank is nonzero on that rank's slice only)."""
+    return key.startswith(("bottom1.", "bottom2."))
+
+
+def _bottleneck_tp(params, bn, x, mesh):
+    """bottom1-3 over the mesh's 'model' axis (the module docstring): each
+    shard runs the four convs of bottom1 and bottom2 on its output
+    channels with their BatchNorms; the channels are gathered before every
+    conv but the first, whose whole input each shard takes as it is, and
+    before bottom3, which runs whole. Returns bottom3's output."""
+    from maskunet_tpu_torch.parallel import mesh as mesh_lib
+    home = x.device
+    ranked = mesh.model_group is not None
+    shards = ([(mesh_lib.channels_tp_spec(mesh, 512), home)] if ranked
+              else [(mesh_lib.channels_tp_spec(mesh, 512, j), mesh.devices[j])
+                    for j in range(mesh.n_model)])
+
+    def gather(hs, consumer):
+        """The whole channels, on each shard's device."""
+        if ranked:
+            return [mesh_lib.gather_channels(hs[0], mesh, consumer=consumer)]
+        whole = torch.cat([h.to(home) for h in hs], dim=-1)
+        return [whole.to(dev) for _, dev in shards]
+
+    xs = ([mesh_lib.model_parallel_input(x, mesh)] if ranked
+          else [x.to(dev) for _, dev in shards])
+    for i, name in enumerate(TP_CONVS):
+        if i:
+            xs = gather(xs, "sharded")
+        prefix, k = name.rsplit(".", 1)
+        norm = f"{prefix}.{int(k) + 1}"
+        outs, stats = [], []
+        for (sl, _), h in zip(shards, xs):
+            h = bn(norm, _conv(params, name, h, sl), sl)
+            outs.append(layers.gelu(h) if k == "0" else h)   # _convblock
+            stats.append([bn.new_state.get(f"{norm}.running_{s}")
+                          for s in ("mean", "var")])
+        xs = outs
+        if bn.train:    # the shards' new running stats, whole
+            for s, parts in zip(("mean", "var"), zip(*stats)):
+                bn.new_state[f"{norm}.running_{s}"] = (
+                    mesh_lib.gather_model_slices(parts[0], mesh) if ranked
+                    else torch.cat([t.to(home) for t in parts]))
+    x = gather(xs, "replicated")[0].to(home)
+    return _convblock(params, bn, "bottom3.conv_block", x, residual=False)
 
 
 def encode(params: dict, state: dict | None, x: torch.Tensor, *,
@@ -309,9 +384,12 @@ def encode(params: dict, state: dict | None, x: torch.Tensor, *,
     x2 = _attn(params, 1, _down(params, bn, 1, x1), masks, plans, cfg, train)
     x3 = _attn(params, 2, _down(params, bn, 2, x2), masks, plans, cfg, train)
     x4 = _attn(params, 3, _down(params, bn, 3, x3), masks, plans, cfg, train)
-    for i in (1, 2, 3):
-        x4 = _convblock(params, bn, f"bottom{i}.conv_block", x4,
-                        residual=False)
+    if mesh is not None and mesh.n_model > 1:
+        x4 = _bottleneck_tp(params, bn, x4, mesh)
+    else:
+        for i in (1, 2, 3):
+            x4 = _convblock(params, bn, f"bottom{i}.conv_block", x4,
+                            residual=False)
     return (x1, x2, x3, x4), bn.result()
 
 

@@ -1,5 +1,5 @@
-"""The data-parallel mesh: one process per device, a process group as the
-'data' axis.
+"""The ('data', 'model') mesh: one process per device, a process group for
+each axis.
 
 Counterpart of maskunet_tpu/parallel/mesh.py. JAX jits over a ('data',
 'model') mesh: params replicated, the batch sharded on 'data', and GSPMD
@@ -22,8 +22,17 @@ as rank 0's (`put_replicated`). Without one, a single process drives every
 device of the mesh: the serving runner's mesh (`serve.py`), as JAX serves
 from one controller.
 
-`n_model > 1`, the tensor-parallel 'model' axis, is refused: it belongs to
-the ring-attention and TP slice of the port.
+The 'model' axis (`n_model > 1`, tensor parallelism) follows JAX's layout:
+`np.asarray(devices).reshape(n_data, n_model)`, so rank r is data index
+r // n_model and model index r % n_model. Each rank belongs to two groups:
+its data group (the ranks of its model index: BatchNorm, the losses, the
+metrics and the replicated gradients reduce over it) and its model group
+(the ranks of its data index: the channel gathers of the bottleneck,
+`gather_channels`). Params stay whole on every rank; each model rank
+computes its slice of the channels (`channels_tp_spec`), where JAX's GSPMD
+shards the bottleneck's activations and propagates matching kernel
+shardings. gloo has no reduce-scatter: a gather's backward all-reduces and
+slices.
 
 The backend is the caller's choice: NCCL on the card, gloo on the CPU and
 wherever two ranks share one card (NCCL refuses two ranks on one GPU).
@@ -48,19 +57,20 @@ MODEL_AXIS = "model"
 # every process group gets a timeout: a collective that one rank never
 # reaches fails after it instead of hanging
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=300)
-TP_SLICE = ("tensor parallelism (n_model > 1) belongs to the ring-attention "
-            "and TP slice of the port, which is not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A ('data', 'model') mesh: `devices[i]` is data index i's device (a
-    device may appear more than once where the caller named it so).
-    `group`: the process group of the 'data' axis, rank r driving
-    `devices[r]`; None where one process drives every device."""
+    """A ('data', 'model') mesh: `devices[d * n_model + m]` is the device of
+    data index d and model index m (a device may appear more than once
+    where the caller named it so). `group`: this rank's process group of
+    the 'data' axis (the world when `n_model` is 1), `model_group` that of
+    the 'model' axis (None when `n_model` is 1); both None where one
+    process drives every device."""
     devices: tuple
     group: object = None
     n_model: int = 1
+    model_group: object = None
     axis_names = (DATA_AXIS, MODEL_AXIS)
 
     @property
@@ -77,9 +87,15 @@ class Mesh:
         return 0 if self.group is None else dist.get_rank(self.group)
 
     @property
+    def model_rank(self) -> int:
+        """This process's model index (0 without a model group)."""
+        return 0 if self.model_group is None else dist.get_rank(
+            self.model_group)
+
+    @property
     def device(self) -> torch.device:
         """The device this process drives."""
-        return self.devices[self.rank]
+        return self.devices[self.rank * self.n_model + self.model_rank]
 
 
 def _local_index(rank: int) -> int:
@@ -102,12 +118,12 @@ def make_mesh(n_data: int | None = None, n_model: int = 1,
               devices=None) -> Mesh:
     """A (data, model) mesh over the given devices, or by default this
     process's card (`cuda:<local rank>`) for each process of the
-    initialised process group, or every card of this host without one. `devices` may name
-    one device twice (two ranks on one card): a divergence from JAX,
-    whose devices are distinct. Refuses a size that does not match the
-    devices, as JAX does, and `n_model > 1` (TP: a later slice)."""
-    if n_model != 1:
-        raise NotImplementedError(TP_SLICE)
+    initialised process group, or every card of this host without one.
+    `devices` may name one device twice (two ranks on one card): a
+    divergence from JAX, whose devices are distinct. Refuses a size that
+    does not match the devices, as JAX does. In a process group of
+    n_data x n_model ranks with `n_model > 1`, every rank makes every
+    data and model group, in the same order."""
     group = dist.group.WORLD if dist.is_initialized() else None
     if devices is None:
         if group is not None:
@@ -120,16 +136,29 @@ def make_mesh(n_data: int | None = None, n_model: int = 1,
                     f"(local index {local}), this host has {count}")
             devices = [torch.device("cuda", local)] * dist.get_world_size()
         else:
-            devices = default_devices(n_data or torch.cuda.device_count())
+            devices = default_devices(n_data * n_model if n_data
+                                      else torch.cuda.device_count())
     devices = tuple(torch.device(d) for d in devices)
     if n_data is None:
         n_data = len(devices) // n_model
     if n_data * n_model != len(devices):
         raise ValueError(f"mesh {n_data}x{n_model} != {len(devices)} devices")
-    if group is not None and dist.get_world_size() != n_data:
-        raise ValueError(f"mesh of {n_data} data ranks in a process group "
-                         f"of {dist.get_world_size()}")
-    return Mesh(devices, group)
+    if group is None:
+        return Mesh(devices, None, n_model)
+    if dist.get_world_size() != n_data * n_model:
+        raise ValueError(f"mesh of {n_data}x{n_model} ranks in a process "
+                         f"group of {dist.get_world_size()}")
+    if n_model == 1:
+        return Mesh(devices, group)
+    data_index, model_index = divmod(dist.get_rank(), n_model)
+    groups = [dist.new_group([d * n_model + m for d in range(n_data)],
+                             timeout=DEFAULT_TIMEOUT)
+              for m in range(n_model)]
+    model_groups = [dist.new_group([d * n_model + m for m in range(n_model)],
+                                   timeout=DEFAULT_TIMEOUT)
+                    for d in range(n_data)]
+    return Mesh(devices, groups[model_index], n_model,
+                model_groups[data_index])
 
 
 def init_distributed(coordinator: str | None = None,
@@ -168,9 +197,10 @@ def init_distributed(coordinator: str | None = None,
 
 
 def check_process_mesh(mesh: Mesh | None) -> None:
-    """Training and evaluation run one process per device: a mesh of
-    several devices without a process group would put all its rows on
-    one device, so it is refused (serving drives such a mesh)."""
+    """Training and evaluation run one process per data index: a data
+    mesh of several devices without a process group would put all its
+    rows on one device, so it is refused (serving drives such a mesh).
+    One process may drive the model shards of one data index."""
     if mesh is not None and mesh.group is None and mesh.n_data > 1:
         raise ValueError(
             f"a data mesh of {mesh.n_data} devices trains and evaluates "
@@ -184,15 +214,21 @@ def data_group(mesh: Mesh | None):
     return None if mesh is None else mesh.group
 
 
+def world_group(mesh: Mesh | None):
+    """The process group of every rank of the mesh (both axes), None
+    without one."""
+    return None if data_group(mesh) is None else dist.group.WORLD
+
+
 def is_lead(mesh: Mesh | None) -> bool:
-    """Rank 0 of the data axis (every single-process run): the one that
-    writes checkpoints and logs, as JAX's process 0."""
-    return mesh is None or mesh.rank == 0
+    """Global rank 0 (every single-process run): the one that writes
+    checkpoints and logs, as JAX's process 0."""
+    return world_group(mesh) is None or dist.get_rank() == 0
 
 
 def barrier(mesh: Mesh | None) -> None:
-    if data_group(mesh) is not None:
-        dist.barrier(group=mesh.group)
+    if world_group(mesh) is not None:
+        dist.barrier(group=world_group(mesh))
 
 
 def _on_backend(group, t: torch.Tensor) -> torch.Tensor:
@@ -289,6 +325,21 @@ def shard_batch(mesh: Mesh | None, batch: dict, n_micro: int = 1) -> dict:
     return {k: v[rows] for k, v in batch.items()}
 
 
+def shard_tokens(mesh: Mesh | None, t: torch.Tensor,
+                 dim: int = 1) -> torch.Tensor:
+    """This rank's contiguous 1/n of the token axis `dim` of `t` over the
+    mesh's group (ring attention's 'seq' axis, as JAX's P(None, 'seq')
+    shards it in device order); all of it without a group."""
+    group = data_group(mesh)
+    if group is None:
+        return t
+    n = dist.get_world_size(group)
+    if t.shape[dim] % n:
+        raise ValueError(f"{t.shape[dim]} tokens do not divide over "
+                         f"{n} ranks")
+    return t.chunk(n, dim=dim)[dist.get_rank(group)]
+
+
 def shard_masks(mesh: Mesh | None, masks, plans=None):
     """This rank's rows of per-slot attention masks sized for the global
     (micro)batch and of their compaction plans (a plan is per row, so its
@@ -304,11 +355,11 @@ def shard_masks(mesh: Mesh | None, masks, plans=None):
 
 
 def put_replicated(mesh: Mesh | None, ts):
-    """Rank 0's train state on every rank of the data axis, in place:
+    """Global rank 0's train state on every rank of both axes, in place:
     parameters, BatchNorm statistics, cached masks, optimizer moments, the
     step and the generator (the 'fresh' masks, dropout and triplets are
     drawn on every rank in lockstep from it). Returns `ts`."""
-    group = data_group(mesh)
+    group = world_group(mesh)
     if group is None:
         return ts
     with torch.no_grad():
@@ -324,3 +375,93 @@ def put_replicated(mesh: Mesh | None, ts):
     ts.step = int(broadcast_(step, group)[0])
     ts.generator.set_state(broadcast_(ts.generator.get_state(), group))
     return ts
+
+
+# --- the 'model' axis --------------------------------------------------------
+
+def channels_tp_spec(mesh: Mesh | None, channels: int,
+                     index: int | None = None) -> slice:
+    """The slice of a channel axis of `channels` that model index `index`
+    (default: this rank's) computes: the counterpart of JAX's
+    `channels_tp_spec` (channels sharded over 'model'). Every channel
+    without a 'model' axis."""
+    n = 1 if mesh is None else mesh.n_model
+    if channels % n:
+        raise ValueError(f"{channels} channels do not divide over "
+                         f"{n} model ranks")
+    if n == 1:
+        return slice(0, channels)
+    i = mesh.model_rank if index is None else index
+    c = channels // n
+    return slice(i * c, (i + 1) * c)
+
+
+def _gather_last(t: torch.Tensor, group) -> torch.Tensor:
+    """The group's `t` concatenated along the last axis in rank order."""
+    src = _on_backend(group, t).contiguous()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=-1).to(t.device)
+
+
+class _GatherChannels(torch.autograd.Function):
+    """All-gather over the model group along channels. Backward: this
+    rank's slice of the gradient, all-reduced first where each rank's
+    gradient is a partial sum (`partial`)."""
+
+    @staticmethod
+    def forward(ctx, t, group, partial):
+        ctx.group, ctx.partial, ctx.c = group, partial, t.shape[-1]
+        return _gather_last(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.partial:
+            grad = all_reduce_(grad.contiguous().clone(), ctx.group)
+        r = dist.get_rank(ctx.group)
+        return grad[..., r * ctx.c:(r + 1) * ctx.c].contiguous(), None, None
+
+
+CONSUMERS = ("sharded", "replicated")
+
+
+def gather_channels(t: torch.Tensor, mesh: Mesh, *,
+                    consumer: str) -> torch.Tensor:
+    """This rank's channel slice `t` gathered over the 'model' axis into
+    the whole channel axis, differentiable. The backward depends on what
+    consumes the whole tensor, which the caller must say:
+
+    - `consumer="sharded"`: a column-sharded op (each rank computes its
+      slice of the output channels): each rank's gradient is a partial
+      sum, so the backward all-reduces it over 'model', then slices;
+    - `consumer="replicated"`: code that every model rank runs whole:
+      each rank already holds the whole gradient, so the backward only
+      slices (a sum would count it n_model times)."""
+    if consumer not in CONSUMERS:
+        raise ValueError(f"consumer must be one of {CONSUMERS}, "
+                         f"got {consumer!r}")
+    return _GatherChannels.apply(t, mesh.model_group, consumer == "sharded")
+
+
+class _SumGradients(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.contiguous().clone(), ctx.group), None
+
+
+def model_parallel_input(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """A whole (replicated) tensor that a column-sharded op consumes: the
+    identity, whose backward sums the model ranks' partial gradients."""
+    return _SumGradients.apply(t, mesh.model_group)
+
+
+def gather_model_slices(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's channel slice of a tensor without gradient (running
+    statistics) gathered whole over the 'model' axis."""
+    with torch.no_grad():
+        return _gather_last(t, mesh.model_group)

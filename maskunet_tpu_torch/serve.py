@@ -207,27 +207,29 @@ def model_config(recipe: recipes_lib.Recipe, num_classes: int, *,
 
 def classify(infer_params: dict, masks: tuple | None, plans: tuple | None,
              cfg: mu.MaskAttnUNetConfig,
-             images: torch.Tensor) -> torch.Tensor:
+             images: torch.Tensor, mesh=None) -> torch.Tensor:
     """Class maps uint8 [B,H,W] of uint8 images [B,H,W,3] already on the
     device: the folded forward on `infer_params` with the serving masks
     and their plans, its argmax. The live forward and the exported
-    artifact both run it."""
+    artifact both run it. `mesh`: one data index's 'model' axis (the
+    bottleneck's shards on its devices, `mu.apply`)."""
     out, _ = mu.apply(infer_params, None, images.float() / 255.0, cfg=cfg,
-                      masks=masks, folded=True, mask_plans=plans)
+                      masks=masks, folded=True, mask_plans=plans, mesh=mesh)
     return out.semantic.argmax(dim=-1).to(torch.uint8)
 
 
 def make_forward(infer_params: dict, masks: tuple | None, plans: tuple | None,
-                 cfg: mu.MaskAttnUNetConfig, device: str | torch.device):
+                 cfg: mu.MaskAttnUNetConfig, device: str | torch.device,
+                 mesh=None):
     """forward(images uint8 [B,H,W,3]) -> class maps uint8 [B,H,W] on
     `device` (not synchronised). `infer_params` are folded (and cast) and,
-    with `masks` and `plans`, already on `device`."""
+    with `masks` and `plans`, already on `device`. `mesh`: `classify`'s."""
     device = torch.device(device)
 
     @torch.no_grad()
     def forward(images) -> torch.Tensor:
         return classify(infer_params, masks, plans, cfg,
-                        torch.as_tensor(images).to(device))
+                        torch.as_tensor(images).to(device), mesh)
 
     return forward
 
@@ -235,24 +237,27 @@ def make_forward(infer_params: dict, masks: tuple | None, plans: tuple | None,
 def make_replicated_forward(infer_params: dict, masks: tuple | None,
                             cfg: mu.MaskAttnUNetConfig, mesh):
     """The data-parallel serving forward over `mesh`'s devices, driven by
-    this one process: the params replicated to each device (one copy a
-    distinct device), replica i's rows of the per-slot `masks` and their
-    plans on its device; forward(images) splits the rows the same way,
-    runs every replica and concatenates the class maps on the first
-    device (not synchronised)."""
-    from maskunet_tpu_torch.parallel.mesh import move_tree
-    n = mesh.n_data
+    this one process: the params replicated to each data index's first
+    device (one copy a distinct device), replica i's rows of the per-slot
+    `masks` and their plans on it; forward(images) splits the rows the
+    same way, runs every replica and concatenates the class maps on the
+    first device (not synchronised). With a 'model' axis each replica
+    runs its bottleneck's shards on its data index's devices."""
+    from maskunet_tpu_torch.parallel.mesh import Mesh, move_tree
+    n, n_model = mesh.n_data, mesh.n_model
     copies: dict = {}
     replicas = []
-    for i, dev in enumerate(mesh.devices):
+    for i in range(n):
+        devices = mesh.devices[i * n_model:(i + 1) * n_model]
+        dev = devices[0]
         if dev not in copies:
             copies[dev] = {k: v.to(dev) for k, v in infer_params.items()}
         rows = None if masks is None else tuple(
             m.chunk(n)[i] for m in masks)
         rows = move_tree(rows, dev)
-        replicas.append(make_forward(copies[dev], rows,
-                                     mu.precompute_mask_plans(rows), cfg,
-                                     dev))
+        replicas.append(make_forward(
+            copies[dev], rows, mu.precompute_mask_plans(rows), cfg, dev,
+            Mesh(devices, n_model=n_model) if n_model > 1 else None))
 
     def forward(images) -> torch.Tensor:
         images = torch.as_tensor(images)
@@ -285,9 +290,10 @@ def build_inference_fn(recipe, num_classes: int, workdir: str | None = None,
     the ragged tail batch is padded by repetition, which adds no maximum).
 
     `mesh` (`parallel.mesh.make_mesh` without a process group): data-
-    parallel serving over its devices (`make_replicated_forward`); the
-    batch must divide by its size, as JAX requires. The weights are built
-    on `device`, then replicated."""
+    parallel serving over its devices (`make_replicated_forward`), and
+    tensor-parallel over its 'model' axis; the batch must divide by the
+    data axis's size, as JAX requires. The weights are built on `device`,
+    then replicated."""
     if isinstance(recipe, str):
         recipe = recipes_lib.get(recipe)
     if quantize is not None and quantize != "int8":

@@ -21,7 +21,14 @@ loss terms are each rank's share of the global means, BatchNorm's
 statistics and the mIoU histograms are all-reduced, and so are the
 gradients, so every rank runs the same AdamW update. The step on N ranks
 equals the one-process step on the global batch up to the order of the
-reductions. The pipeline (`pipe_mesh`, `parallel/pipeline.py`) runs the
+reductions. A mesh with a 'model' axis (tensor parallelism, the model's
+docstring) keeps the params whole on every rank: the gradients of the
+tensors that each model rank computes in slices (`model.tp_sharded`) are
+nonzero on its slice only and sum over both axes; the others are whole
+on every model rank of a data index and sum over 'data' only, as the
+loss terms and the metrics do (model index 0's sums then go to the other
+model ranks, so that all hold the same bits). The pipeline (`pipe_mesh`,
+`parallel/pipeline.py`) runs the
 forward as a 2-stage GPipe over `pipe_microbatches` microbatches, with one
 global loss over all their outputs; a pipe mesh with a data axis (dp x pp)
 composes both.
@@ -47,6 +54,7 @@ import functools
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from maskunet_tpu_torch.core.device import exact_f32, resolve_device
 from maskunet_tpu_torch.core.state import TrainState
@@ -191,18 +199,33 @@ def make_grads_and_metrics(cfg: model.MaskAttnUNetConfig, task: TaskConfig,
     return grads_and_metrics
 
 
-def _all_reduce_grads(grads: dict, group) -> dict:
-    """The ranks' gradients summed, in one flat buffer."""
+def _all_reduce_grads(grads: dict, group, mesh=None) -> dict:
+    """The ranks' gradients summed, in one flat buffer a group: over
+    `group` (the data axis), and under a 'model' axis the model-sharded
+    tensors' over both axes. The replicated tensors' sums are then model
+    index 0's on every model rank: each model rank computed them itself,
+    and K4's dQ sums by atomics (`ops/flash_kernels.py`), so on the card
+    the ranks' copies differ in their last bits and would drift apart."""
     if group is None:
         return grads
-    keys = list(grads)
-    flat = torch.cat([grads[k].reshape(-1) for k in keys])
-    mesh_lib.all_reduce_(flat, group)
-    out, at = {}, 0
-    for k in keys:
-        n = grads[k].numel()
-        out[k] = flat[at:at + n].view_as(grads[k])
-        at += n
+    tp = mesh is not None and mesh.model_group is not None
+    parts = [(list(grads), group)]
+    if tp:
+        parts = [([k for k in grads if not model.tp_sharded(k)], group),
+                 ([k for k in grads if model.tp_sharded(k)],
+                  mesh_lib.world_group(mesh))]
+    out = {}
+    for i, (keys, g) in enumerate(parts):
+        flat = torch.cat([grads[k].reshape(-1) for k in keys])
+        mesh_lib.all_reduce_(flat, g)
+        if tp and i == 0:
+            lead = dist.get_global_rank(mesh.model_group, 0)
+            mesh_lib.broadcast_(flat, mesh.model_group, src=lead)
+        at = 0
+        for k in keys:
+            n = grads[k].numel()
+            out[k] = flat[at:at + n].view_as(grads[k])
+            at += n
     return out
 
 
@@ -226,9 +249,10 @@ def make_train_step(cfg: model.MaskAttnUNetConfig, task: TaskConfig,
     the BN running stats thread through them, and the metrics are their
     means. `ts.masks` must be sized for the microbatch.
 
-    `mesh` (`parallel.mesh.make_mesh`): data parallelism; `batch` is the
-    global batch, `ts.masks` are sized for the global microbatch, and
-    `device` is this rank's (the module docstring says what is global).
+    `mesh` (`parallel.mesh.make_mesh`): data parallelism, and tensor
+    parallelism over its 'model' axis; `batch` is the global batch,
+    `ts.masks` are sized for the global microbatch, and `device` is this
+    rank's (the module docstring says what is global).
     `pipe_mesh` with `pipe_microbatches >= 2`: the 2-stage GPipe forward
     (`parallel/pipeline.py`); dp x pp is a `pipeline.make_dp_pipe_mesh`
     pipe mesh, and `mesh` must then be None, as JAX refuses both.
@@ -247,8 +271,6 @@ def make_train_step(cfg: model.MaskAttnUNetConfig, task: TaskConfig,
                              "pipe_mesh (1 microbatch has no overlap)")
     else:
         pipe_microbatches = 1
-    if mesh is not None and mesh.shape.get(mesh_lib.MODEL_AXIS, 1) > 1:
-        raise NotImplementedError(mesh_lib.TP_SLICE)
     mesh_lib.check_process_mesh(mesh)
     group = mesh_lib.data_group(pipe_mesh.data if pipe_mesh is not None
                                 else mesh)
@@ -282,7 +304,7 @@ def make_train_step(cfg: model.MaskAttnUNetConfig, task: TaskConfig,
             per_micro.append(m)
         if grad_accum > 1:
             grads = {k: g / grad_accum for k, g in grads.items()}
-        grads = _all_reduce_grads(grads, group)
+        grads = _all_reduce_grads(grads, group, mesh)
         metrics = {k: torch.stack([m[k] for m in per_micro]).mean()
                    for k in per_micro[0]}
         for k, p in ts.params.items():

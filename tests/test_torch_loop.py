@@ -277,12 +277,13 @@ def test_warm_start_from_a_checkpoint_keeps_the_new_head(workdir):
 
 
 @pytest.mark.parametrize("kw, error, match", [
-    # the parallel slice is ported: what stays refused is tensor
-    # parallelism (a 'model' axis), and a pipeline on a mesh without the
-    # 'pipe' axis, as JAX refuses it
-    pytest.param({"mesh": mesh_lib.Mesh((torch.device("cpu"),) * 2,
+    # the parallel slices are ported: what stays refused is JAX's
+    # refusal of a pipeline on a mesh without the 'pipe' axis, a (data,
+    # model) mesh or a data mesh
+    pytest.param({"pipeline_microbatches": 2,
+                  "mesh": mesh_lib.Mesh((torch.device("cpu"),) * 2,
                                         n_model=2)},
-                 NotImplementedError, "TP slice", id="kw0-parallel slice"),
+                 ValueError, "a 'pipe' axis", id="kw0-parallel slice"),
     pytest.param({"pipeline_microbatches": 2,
                   "mesh": mesh_lib.Mesh((torch.device("cpu"),))},
                  ValueError, "a 'pipe' axis", id="kw1-parallel slice"),

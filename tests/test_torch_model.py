@@ -16,6 +16,7 @@ pyproject's `error::DeprecationWarning:maskunet_tpu` filter also matches
 calls instead of editing the filter.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -182,11 +183,12 @@ def test_bf16_folded_cast_matches_jax(golden_setup):
 
 
 def test_later_slices_raise():
-    """Tensor-parallel meshes still raise (a later slice), a data mesh
-    runs; train mode (with or without
-    remat) now runs and returns the new running stats of every BN, and
-    int8 serving (the serving-extras slice) quantizes every conv, its
-    calibration refusing a run that recorded nothing."""
+    """A data mesh runs, and a tensor-parallel mesh driven by one process
+    (two CPU devices) gives the forward without a mesh, in eval and in
+    train mode; train mode (with or without remat) returns the new running
+    stats of every BN, and int8 serving (the serving-extras slice)
+    quantizes every conv, its calibration refusing a run that recorded
+    nothing."""
     cfg = tmu.MaskAttnUNetConfig(c_out=4, img_size=16)
     params, state = tmu.init(torch.Generator().manual_seed(0), cfg)
     x = torch.zeros(1, 16, 16, 3)
@@ -200,7 +202,7 @@ def test_later_slices_raise():
             dropout_generator=torch.Generator().manual_seed(0))
         assert set(new_state) == set(state)
     # a data mesh is accepted (one rank: the forward without one); a
-    # 'model' axis, tensor parallelism, is the slice still to port
+    # 'model' axis of one process runs each bottleneck shard on its device
     from maskunet_tpu_torch.parallel import mesh as mesh_lib
     with torch.no_grad():
         alone = tmu.apply(params, state, x, cfg=cfg)[0].semantic
@@ -208,9 +210,17 @@ def test_later_slices_raise():
                             mesh=mesh_lib.make_mesh(1, devices=["cpu"])
                             )[0].semantic
     assert torch.equal(alone, on_mesh)
-    with pytest.raises(NotImplementedError, match="TP slice"):
-        tmu.apply(params, state, x, cfg=cfg,
-                  mesh=mesh_lib.Mesh((torch.device("cpu"),) * 2, n_model=2))
+    tp = mesh_lib.make_mesh(1, n_model=2, devices=["cpu", "cpu"])
+    xr = torch.randn(2, 16, 16, 3, generator=torch.Generator().manual_seed(1))
+    for train in (False, True):
+        kw = dict(cfg=dataclasses.replace(cfg, dropout_rate=0.0), train=train)
+        with torch.no_grad():
+            want, want_state = tmu.apply(params, state, xr, **kw)
+            got, got_state = tmu.apply(params, state, xr, mesh=tp, **kw)
+        torch.testing.assert_close(got.semantic, want.semantic, atol=1e-5,
+                                   rtol=1e-5)
+        for k, v in want_state.items():
+            torch.testing.assert_close(got_state[k], v, atol=1e-6, rtol=1e-6)
     quantized = tmu.quantize_params_for_inference(params)
     assert quantized["final_layer.0.kernel_q"].dtype == torch.int8
     assert "final_layer.0.weight" not in quantized

@@ -63,8 +63,11 @@ def test_make_mesh_and_its_refusals():
     assert mesh.axis_names == ("data", "model") and mesh.rank == 0
     with pytest.raises(ValueError, match=r"mesh 2x1 != 3 devices"):
         mesh_lib.make_mesh(2, devices=["cpu"] * 3)
-    with pytest.raises(NotImplementedError, match="TP slice"):
-        mesh_lib.make_mesh(1, n_model=2, devices=CPU2)
+    tp = mesh_lib.make_mesh(1, n_model=2, devices=CPU2)
+    assert tp.shape == {"data": 1, "model": 2} and tp.group is None
+    assert tp.model_group is None and tp.rank == tp.model_rank == 0
+    assert [mesh_lib.channels_tp_spec(tp, 512, i) for i in (0, 1)] == [
+        slice(0, 256), slice(256, 512)]
     if torch.cuda.device_count() < 2:
         with pytest.raises(ValueError, match="mesh needs 2 devices"):
             mesh_lib.make_mesh(2)
@@ -95,8 +98,9 @@ def test_local_rows_and_shards():
 
 @pytest.fixture(scope="module")
 def dp_steps():
-    return {name: ranks.spawn(ranks.dp_step, 2, name)
-            for name in ranks.SCENARIOS}
+    """Every scenario's step in one spawn of the two ranks."""
+    results = ranks.spawn(ranks.dp_steps, 2, list(ranks.SCENARIOS))
+    return {name: [r[name] for r in results] for name in ranks.SCENARIOS}
 
 
 @pytest.mark.parametrize("name", list(ranks.SCENARIOS))

@@ -302,20 +302,22 @@ def test_train_paths_of_later_slices_raise():
     blend = tstep.TaskConfig(triplet_weight=0.1)   # ported: builds
     assert callable(tstep.make_train_step(cfg, blend, device="cpu"))
     assert callable(tstep.make_eval_step(cfg, blend, device="cpu"))
-    # the parallel slice is ported: a data mesh and a pipe mesh build
-    # steps; tensor parallelism and a mesh without the pipe axis raise
+    # the parallel slices are ported: a data mesh, a (data, model) mesh
+    # and a pipe mesh build steps; JAX's refusals stay: a pipe mesh with a
+    # (TP) mesh, and a mesh without the pipe axis
     from maskunet_tpu_torch.parallel import mesh as mesh_lib
     from maskunet_tpu_torch.parallel import pipeline as pp
-    assert callable(tstep.make_train_step(
-        cfg, tstep.TaskConfig(), device="cpu",
-        mesh=mesh_lib.make_mesh(1, devices=["cpu"])))
+    tp = mesh_lib.make_mesh(1, n_model=2, devices=["cpu", "cpu"])
+    for mesh in (mesh_lib.make_mesh(1, devices=["cpu"]), tp):
+        assert callable(tstep.make_train_step(
+            cfg, tstep.TaskConfig(), device="cpu", mesh=mesh))
+    pipe = pp.make_pipe_mesh(devices=["cpu", "cpu"])
     assert callable(tstep.make_train_step(
         cfg, tstep.TaskConfig(), device="cpu", pipe_microbatches=2,
-        pipe_mesh=pp.make_pipe_mesh(devices=["cpu", "cpu"])))
-    with pytest.raises(NotImplementedError, match="TP slice"):
+        pipe_mesh=pipe))
+    with pytest.raises(ValueError, match="not both"):
         tstep.make_train_step(cfg, tstep.TaskConfig(), device="cpu",
-                              mesh=mesh_lib.Mesh((torch.device("cpu"),) * 2,
-                                                 n_model=2))
+                              mesh=tp, pipe_mesh=pipe, pipe_microbatches=2)
     with pytest.raises(ValueError, match="a 'pipe' axis"):
         tstep.make_train_step(cfg, tstep.TaskConfig(), pipe_mesh=object(),
                               device="cpu")

@@ -93,8 +93,11 @@ class SGD:
     device after one SGD update for that reason)."""
     schedule = None
 
+    def __init__(self, lr: float = 0.1):
+        self.lr = lr
+
     def __call__(self, params):
-        return torch.optim.SGD(params, lr=0.1)
+        return torch.optim.SGD(params, lr=self.lr)
 
     def scheduler(self, optimizer):
         return None
@@ -211,6 +214,11 @@ def dp_step(rank: int, name: str, device: str = "cpu",
                                    1e-300))
                        for k in got["params"]))
     return out
+
+
+def dp_steps(rank: int, names: list) -> dict:
+    """`dp_step` of each scenario in `names`, in this one rank."""
+    return {name: dp_step(rank, name) for name in names}
 
 
 def dp_batchnorm(rank: int) -> dict:
@@ -330,4 +338,204 @@ def dp_evaluators(rank: int) -> dict:
         if rank == 0:
             out["want_" + name] = fn(recipe, None, ts, max_batches=2,
                                      device="cpu")
+    return out
+
+
+# --- ring attention: the 'seq' axis ---------------------------------------
+
+def ring_attention(rank: int, cases: dict) -> dict:
+    """Each case {params, tokens, mask, grads} (numpy, global) through the
+    port's `ring_spatial_attention` on this rank's token shard: the output
+    shard, and with `grads` the shard's gradient of the global sum of
+    squares and the parameters' gradients summed over the ring. Also
+    "permute": what `ring_permute` brings this rank, and the gradient it
+    sends back when each rank weights what it received by its rank + 1."""
+    from maskunet_tpu_torch.parallel import mesh as mesh_lib
+    from maskunet_tpu_torch.parallel import ring_attention as ring
+    import torch.distributed as dist
+    n = dist.get_world_size()
+    mesh = mesh_lib.make_mesh(n, devices=["cpu"] * n)
+    out = {}
+    for name, case in cases.items():
+        params = {k: torch.from_numpy(v).requires_grad_(case["grads"])
+                  for k, v in case["params"].items()}
+        tokens = mesh_lib.shard_tokens(mesh, torch.from_numpy(
+            case["tokens"])).clone().requires_grad_(case["grads"])
+        mask = (None if case["mask"] is None else mesh_lib.shard_tokens(
+            mesh, torch.from_numpy(case["mask"])))
+        y = ring.ring_spatial_attention(params, tokens, mask, mesh=mesh)
+        got = {"out": y.detach().numpy()}
+        if case["grads"]:
+            keys = list(params)
+            grads = torch.autograd.grad(y.square().sum(),
+                                        [tokens] + [params[k] for k in keys])
+            got["tokens"] = grads[0].numpy()
+            got["params"] = {k: mesh_lib.all_reduce_(g.clone(),
+                                                     mesh.group).numpy()
+                             for k, g in zip(keys, grads[1:])}
+        out[name] = got
+    x = torch.tensor([float(rank)], requires_grad=True)
+    y = ring.ring_permute(x, mesh.group)
+    (g,) = torch.autograd.grad((y * (rank + 1)).sum(), [x])
+    out["permute"] = (float(y), float(g))
+    return out
+
+
+# --- tensor parallelism: a (data, model) mesh ----------------------------
+
+TP_SHAPE = (2, 2)       # (n_data, n_model)
+TP_BATCH = 8
+
+
+def tp_scenario(remat: bool = False):
+    """tests/test_sharding.py:21-37 in the port: c_out 4, 16 px, dense
+    attention, dropout 0, SGD 1e-2 (AdamW's first update is ~sign(grad)),
+    masks and a global batch of 8: (cfg, task, fresh state, batch)."""
+    from maskunet_tpu_torch.core import state as state_lib
+    from maskunet_tpu_torch.models import maskattn_unet as mu
+    from maskunet_tpu_torch.train import step as tstep
+    cfg = mu.MaskAttnUNetConfig(c_out=4, img_size=16, attn_impl="dense",
+                                dropout_rate=0.0, remat_attention=remat)
+    gen = torch.Generator().manual_seed(0)
+    params, mstate = mu.init(gen, cfg)
+    masks = mu.make_attention_masks(gen, TP_BATCH, cfg.img_size)
+    ts = state_lib.create(torch.Generator().manual_seed(1), params, mstate,
+                          SGD(1e-2), masks)
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.standard_normal((TP_BATCH, 16, 16, 3)).astype(
+                 np.float32),
+             "label": rng.integers(0, 4, (TP_BATCH, 16, 16))}
+    return cfg, tstep.TaskConfig(), ts, batch
+
+
+def _tp_gathers(mesh) -> dict:
+    """The two backwards of `gather_channels` and that of
+    `model_parallel_input`, each against autograd on the whole tensors in
+    this process: x [2, 3, 3, 8] (8 channels over the model axis) into
+    z = x @ w [8, 6] weighted by g; a column-sharded consumer computes
+    its slice of z's 6 columns, a replicated one all of them. Returns the
+    largest differences of x's gradients (this rank's slice, or whole)."""
+    from maskunet_tpu_torch.parallel import mesh as mesh_lib
+    gen = torch.Generator().manual_seed(3)
+    x, w, g = (torch.randn(*s, generator=gen)
+               for s in ((2, 3, 3, 8), (8, 6), (2, 3, 3, 6)))
+    xs, cols = (mesh_lib.channels_tp_spec(mesh, c) for c in (8, 6))
+    whole = x.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(((whole @ w) * g).sum(), [whole])
+    out = {}
+    for consumer in mesh_lib.CONSUMERS:
+        local = x[..., xs].clone().requires_grad_(True)
+        y = mesh_lib.gather_channels(local, mesh, consumer=consumer)
+        c = cols if consumer == "sharded" else slice(None)
+        (got,) = torch.autograd.grad(((y @ w[:, c]) * g[..., c]).sum(),
+                                     [local])
+        out[consumer] = float((got - want[..., xs]).abs().max())
+    whole_in = x.clone().requires_grad_(True)
+    y = mesh_lib.model_parallel_input(whole_in, mesh)
+    (got,) = torch.autograd.grad(((y @ w[:, cols]) * g[..., cols]).sum(),
+                                 [whole_in])
+    out["model_parallel_input"] = float((got - want).abs().max())
+    return out
+
+
+def tp_all(rank: int, workdir: str) -> dict:
+    """Every tensor-parallel check on a 2x2 (data, model) mesh of the 4
+    ranks: the mesh's sizes, refusals and rank mapping; the gathers'
+    backwards; the TP train step (with `remat_attention`) and, on rank 0,
+    the one-process step on the global batch; the TP eval forward's
+    logits gathered over 'data' (for JAX's `mu.apply`); the TP eval step,
+    `loop.evaluate` and `evaluate_panoptic` against one process; and
+    `loop.train` for one step into `workdir`."""
+    import torch.distributed as dist
+
+    from maskunet_tpu_torch.models import maskattn_unet as mu
+    from maskunet_tpu_torch.parallel import mesh as mesh_lib
+    from maskunet_tpu_torch.tasks import evaluators
+    from maskunet_tpu_torch.tasks import recipes
+    from maskunet_tpu_torch.train import loop
+    from maskunet_tpu_torch.train import step as tstep
+    n_data, n_model = TP_SHAPE
+    out = {"refusals": []}
+    for bad in (dict(n_data=2, n_model=2, devices=["cpu"] * 3),
+                dict(n_data=1, n_model=2, devices=["cpu"] * 2)):
+        try:
+            mesh_lib.make_mesh(**bad)
+        except ValueError as e:
+            out["refusals"].append(str(e))
+    mesh = mesh_lib.make_mesh(n_data, n_model=n_model,
+                              devices=["cpu"] * (n_data * n_model))
+    out.update(global_rank=dist.get_rank(), data_index=mesh.rank,
+               model_index=mesh.model_rank, lead=mesh_lib.is_lead(mesh),
+               shape=mesh.shape, device=str(mesh.device),
+               gathers=_tp_gathers(mesh))
+
+    # the train step: TP (remat) against one process (rank 0)
+    cfg, task, ts, batch = tp_scenario(remat=True)
+    mesh_lib.put_replicated(mesh, ts)
+    step = tstep.make_train_step(
+        cfg, task, mask_plans=mu.precompute_mask_plans(ts.masks),
+        device="cpu", mesh=mesh)
+    ts, metrics = step(ts, batch)
+    got = _numbers(metrics, ts)
+    out.update(metrics=got["metrics"],
+               sums=np.array([v.sum() for v in got["params"].values()]))
+    if rank == 0:
+        cfg1, _, ref, _ = tp_scenario()
+        ref, metrics = tstep.make_train_step(
+            cfg1, task, mask_plans=mu.precompute_mask_plans(ref.masks),
+            device="cpu")(ref, batch)
+        want = _numbers(metrics, ref)
+        out.update(
+            want_metrics=want["metrics"],
+            params_diff=_max_diff(got["params"], want["params"]),
+            bottom2_diff=_max_diff(
+                *({k: v for k, v in d.items() if k.startswith("bottom2.")}
+                  for d in (got["params"], want["params"]))),
+            state_diff=_max_diff(got["state"], want["state"]))
+
+    # the eval forward, the eval step, `evaluate` and an evaluator
+    cfg, task, ts, batch = tp_scenario()
+    local = mesh_lib.shard_batch(mesh, {"image": torch.from_numpy(
+        batch["image"])})
+    masks, _ = mesh_lib.shard_masks(mesh, ts.masks)
+    with torch.no_grad():
+        o, _ = mu.apply(ts.params, ts.model_state, local["image"], cfg=cfg,
+                        masks=masks, mesh=mesh)
+        x4 = [mu.encode(ts.params, ts.model_state, local["image"], cfg=cfg,
+                        masks=masks, mesh=m)[0][3] for m in (mesh, None)]
+    out["logits"] = mesh_lib.all_gather_rows(o.semantic, mesh).numpy()
+    out["bottleneck_shape"] = tuple(x4[0].shape)
+    out["bottleneck_diff"] = float((x4[0] - x4[1]).abs().max()
+                                   / x4[1].abs().max())
+    plans = mu.precompute_mask_plans(ts.masks)
+    evals = {}
+    for name, m in (("tp", mesh), ("one", None)):
+        if m is None and rank != 0:
+            break
+        r = tstep.make_eval_step(cfg, task, device="cpu", mesh=m)(
+            ts, dict(batch), plans)
+        rec = dataclasses.replace(recipes.get("synthetic_panoptic"),
+                                  img_size=16, batch_size=4,
+                                  eval_max_queries=(10, 20))
+        rcfg = loop.model_config(rec, rec.num_classes)
+        rts = loop.setup_state(rec, rcfg, loop.make_optimizer(rec),
+                               device="cpu")
+        evals[name] = {
+            "step": {k: float(v) for k, v in r["metrics"].items()},
+            "pred": mesh_lib.all_gather_rows(r["pred"], m).numpy(),
+            "evaluate": loop.evaluate(rec, None, rts, mesh=m, max_batches=1,
+                                      device="cpu"),
+            "panoptic": evaluators.evaluate_panoptic(
+                rec, None, rts, max_batches=1, device="cpu", mesh=m)}
+    out["evals"] = evals
+
+    # the loop: one step, one writer
+    rec = dataclasses.replace(recipes.get("synthetic_semantic"), img_size=16,
+                              batch_size=4)
+    res = loop.train(rec, None, workdir, max_steps=1, max_epochs=1,
+                     mesh=mesh, data_fraction=0.25, device="cpu",
+                     verbose=False)
+    out["loop"] = {"epochs": len(res.history), "stop": res.stop_reason,
+                   "sums": np.array([float(v.detach().sum())
+                                     for v in res.state.params.values()])}
     return out
