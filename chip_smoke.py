@@ -204,6 +204,31 @@ final result):
     and the parameters within 5e-4 of the plain ones; wall and device ms;
     the transport (gloo's send and receive take host memory only, so the
     shards cross through host buffers).
+30. res256 (after tools): the 256 px configuration through
+    `tools/res256_bench.run` in this process, batch 8, the folded bf16
+    forward then the train step (AdamW 5e-5 / 0.1, random labels), each
+    with its peak memory reset: K1 6 a forward, K2 6 and K4 6 a step
+    over the run's calls, a finite loss that falls over 10 steps; wall
+    and device ms, img/s, busy share, peak GB. Then K1, K2 and K4 at the
+    six 256 px shapes (attn2 and attn4 compacted to 2,560 slots, attn6
+    65,536 x 34,304), launched on the batch and held on rows 0 and 7,
+    one row at a time, against their plain versions under the bounds of
+    2 (bf16), with each one's ms a launch against its bound; and the
+    folded forward at batch 1 through the kernels against the plain
+    path, on a served uint8 image and on a normal one: bf16 logits
+    within the serving bound of 4, f32 logits within the f32 kernel
+    bound of 2, and on the served image the bf16 argmax agreement of 4.
+31. serve_bench: `tools/serve_bench.py` in a subprocess with the JAX
+    tool's defaults (400 requests, concurrency 16, 4 client processes),
+    PNG then raw: no failed request, req/s, p50 and p99, a filled batch,
+    the server's K1 launches 6 a batch, no client importing torch.
+32. serve_breakdown: `tools/serve_breakdown.py` at batch 8 and 16 threads
+    in this process: the A/B/C split, stage A within 25% of the serving
+    forward's wall-clock img/s, timed as in 5 just before and just after
+    the tool (the host's speed drifts over the script's minutes).
+33. mfu: `tools/mfu_report.model_flops` at 128 and 256 px over the wall
+    and device times of the serving, train_time and res256 phases
+    (nothing timed again): every MFU in (0, 1).
 
 It imports torch, numpy and the port, nothing of JAX.
 """
@@ -241,7 +266,8 @@ from maskunet_tpu_torch.tasks import evaluators, predict, recipes
 from maskunet_tpu_torch.tasks.datasets import make_datasets
 from maskunet_tpu_torch.tools import bf16_softmax_experiment as bf16_tool
 from maskunet_tpu_torch.tools import make_fake_dataset as fake_data
-from maskunet_tpu_torch.tools import softmax_ab
+from maskunet_tpu_torch.tools import (mfu_report, res256_bench,
+                                      serve_breakdown, softmax_ab)
 from maskunet_tpu_torch.train import loop as train_loop
 from maskunet_tpu_torch.train import step as train_step
 from maskunet_tpu_torch.utils import torch_import
@@ -837,9 +863,10 @@ def phase_serving(card: str, safe: bool = False) -> dict:
 
 
 def serve_wall_and_profile(card: str, runner, batch, prefix: str,
-                           tag: str) -> None:
+                           tag: str) -> dict:
     """Serving forward wall time (best of 3 x 10) and a device profile of
-    three forwards; `tag` names the flash kernel in the profile."""
+    three forwards; `tag` names the flash kernel in the profile. Returns
+    the wall and device ms a forward (device None if not measured)."""
     best = float("inf")
     for _ in range(3):
         torch.cuda.synchronize()
@@ -872,16 +899,21 @@ def serve_wall_and_profile(card: str, runner, batch, prefix: str,
          device_launches_per_forward=sum(r[2] for r in rows) / 3,
          top=[{"name": k[:90], "ms_per_forward": us / 3e3, "calls": n // 3}
               for us, k, n in rows[:12]])
+    return {"wall_ms": best * 1e3,
+            "device_ms": total_dev / 3e3 if rows else None}
 
 
 def phase_times(card: str, serving: dict) -> dict:
-    serve_wall_and_profile(card, serving["runner"],
-                           np.stack(serving["images"][:BATCH]), "",
-                           "fwd_nomax")
+    """K1's sums over the six shapes, its launches, and the serving
+    forward's wall and device ms (`serve`)."""
+    serve = serve_wall_and_profile(card, serving["runner"],
+                                   np.stack(serving["images"][:BATCH]), "",
+                                   "fwd_nomax")
     totals = forward_shape_times(card, "attn_time", fk.flash_fwd_nomax,
                                  fk.flash_fwd_nomax_reference, seed=1,
                                  body=fk.flash_fwd_nomax_body)
     totals["launches"] = serving["launches"]
+    totals["serve"] = serve
     return totals
 
 
@@ -1099,10 +1131,11 @@ def phase_train(card: str, safe: bool = False) -> dict:
 
 
 def train_wall_and_profile(card: str, train: dict, prefix: str,
-                           shares: dict) -> None:
+                           shares: dict) -> dict:
     """Training step wall time (best of 3 x 10) and a device profile of 3
     steps; `shares` names the share keys and the kernel name each reads.
-    Drops the training state afterwards."""
+    Drops the training state afterwards. Returns the wall and device ms a
+    step (device None if not measured)."""
     step, batch, ts = train["step"], train["batch"], train["ts"]
     best = float("inf")
     for _ in range(3):
@@ -1137,6 +1170,7 @@ def train_wall_and_profile(card: str, train: dict, prefix: str,
          top=[{"name": k[:90], "ms_per_step": us / 3e3, "calls": n // 3}
               for us, k, n in rows[:15]])
     del ts, train["ts"]
+    return {"wall_ms": best * 1e3, "device_ms": total / 3e3 if rows else None}
 
 
 def bwd_bound_ms(q, k, bias) -> tuple[float, float]:
@@ -1159,8 +1193,10 @@ K4_TAG = "namespace)::bwd_"
 
 
 def phase_train_time(card: str, train: dict) -> dict:
-    train_wall_and_profile(card, train, "", {"k2_share": "fwd_nomax",
-                                             "k4_share": K4_TAG})
+    """K2's and K4's sums over the six shapes, and the step's wall and
+    device ms (`step`)."""
+    step = train_wall_and_profile(card, train, "", {"k2_share": "fwd_nomax",
+                                                    "k4_share": K4_TAG})
     gen = torch.Generator(device="cuda").manual_seed(4)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms")
     totals = {"K2": dict.fromkeys(keys, 0.0), "K4": dict.fromkeys(keys, 0.0)}
@@ -1203,6 +1239,7 @@ def phase_train_time(card: str, train: dict) -> dict:
             for key in keys:
                 totals[kname][key] += row[key]
         del q4, k4, v4, lib_out, o, lse
+    totals["step"] = step
     return totals
 
 
@@ -3685,6 +3722,309 @@ def phase_ring(card: str, parallel: list) -> None:
           f"ring: the transport of two gloo ranks: {r0['transport']}")
 
 
+# the 256 px configuration (phase res256): (layer, Lq, Lk after
+# compaction, C, use_valid) of its forward; attn2 and attn4 compact here
+RES256_IMG = 256
+RES256_SHAPES = (
+    ("attn1", 16384, 9216, 128, False),
+    ("attn2", 4096, 2560, 256, False),
+    ("attn3", 1024, 1024, 256, True),
+    ("attn4", 4096, 2560, 128, False),
+    ("attn5", 16384, 9216, 64, False),
+    ("attn6", 65536, 34304, 64, False),
+)
+# the batch rows held against the plain versions, one at a time: one f32
+# score matrix of attn6 is 65,536 x 34,304 x 4 B = 9.0 GB a row
+RES256_ROWS = (0, BATCH - 1)
+RES256_STEPS = 10
+# serve_breakdown's stage A (the runner's batches back to back) against the
+# serving phase's wall-clock img/s in the same run
+BREAKDOWN_RTOL = 0.25
+
+
+def free_card() -> int:
+    """Collects the garbage and returns the allocator's cached blocks;
+    the bytes still allocated."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def res256_kernels(card: str) -> dict:
+    """K1, K2 and K4 at the six 256 px shapes (batch 8, bf16): each launched
+    on the whole batch and held, on rows 0 and 7 one at a time, against
+    its plain version on the same rows (K4 on K2's o and lse and a random
+    dO); then each one's device ms a launch against its bound. Returns
+    the worst error and each kernel's sums over the shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    worst = 0.0
+    sums = {k: {"ms": 0.0, "bound_ms": 0.0} for k in ("K1", "K2", "K4")}
+    for name, lq, lk, c, uv in RES256_SHAPES:
+        q, k, v, bias = attention_inputs(gen, lq, lk, c, uv, torch.bfloat16)
+        do = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+        o1 = fk.flash_fwd_nomax(q, k, v, bias, 1.0, uv)
+        o2, lse = fk.flash_fwd_nomax_lse(q, k, v, bias, 1.0, uv)
+        grads = fk.flash_bwd(q, k, v, bias, o2, lse, do, 1.0, uv)
+        torch.cuda.synchronize()
+        outs = {}
+        for r in RES256_ROWS:
+            rows = slice(r, r + 1)
+            args = (q[rows], k[rows], v[rows], bias[rows])
+            want_o, want_lse = fk.flash_fwd_nomax_reference(
+                *args, 1.0, uv, with_lse=True)
+            outs[f"K1_o_row{r}"] = agreement(o1[rows], want_o)
+            outs[f"K2_o_row{r}"] = agreement(o2[rows], want_o)
+            outs[f"K2_lse_row{r}"] = agreement(lse[rows], want_lse)
+            del want_o, want_lse
+            want = fk.flash_bwd_reference(*args, o2[rows], lse[rows],
+                                          do[rows], 1.0, uv)
+            for n, g, w in zip(("dq", "dk", "dv"), grads, want):
+                outs[f"K4_{n}_row{r}"] = agreement(g[rows], w)
+            del want
+            free_card()
+        worst = max(worst, emit_case("res256_kernel", name, q, k, uv, outs))
+        times = {}
+        fwd_bytes, fwd_ops = bound_ms(q, k, bias)
+        bwd_bytes, bwd_ops = bwd_bound_ms(q, k, bias)
+        lse_ms = 4 * lse.numel() / PEAK["bytes"] * 1e3
+        for kname, fn, bnd in (
+                ("K1", lambda: fk.flash_fwd_nomax(q, k, v, bias, 1.0, uv),
+                 (fwd_bytes, fwd_ops)),
+                ("K2", lambda: fk.flash_fwd_nomax_lse(q, k, v, bias, 1.0, uv),
+                 (fwd_bytes + lse_ms, fwd_ops)),
+                ("K4", lambda: fk.flash_bwd(q, k, v, bias, o2, lse, do, 1.0,
+                                            uv), (bwd_bytes, bwd_ops))):
+            ms = device_ms(fn, iters=3 if lq * lk > 2 ** 28 else 10)
+            times[kname] = {"ms": ms, "bound_ms": max(bnd),
+                            "bound_by": ("bytes" if bnd[0] > bnd[1]
+                                         else "operations"),
+                            "share_of_bound": max(bnd) / ms}
+            sums[kname]["ms"] += ms
+            sums[kname]["bound_ms"] += max(bnd)
+        emit(phase="res256_attn_time", card=card, layer=name, lq=lq, lk=lk,
+             c=c, batch=BATCH, dtype="bfloat16", use_valid=uv,
+             body={"K1": fk.flash_fwd_nomax_body(c, torch.bfloat16),
+                   "K4": fk.flash_bwd_body(c, torch.bfloat16)}, **times)
+        del q, k, v, bias, do, o1, o2, lse, grads
+        free_card()
+    return {"max_abs_err": worst, "sums": sums}
+
+
+def res256_forward_vs_plain(card: str) -> dict:
+    """The folded forward at 256 px, batch 1, through the kernels (K1 6
+    times) and through K1's plain version, the same weights and masks, in
+    bf16 and in f32, on two inputs: a seeded uint8 image as the server
+    feeds it (x / 255) and a standard normal one (res256_bench's input).
+    bf16 logits within the serving bound of phase 4 on both, f32 logits
+    within the f32 kernel bound (TOL, scaled to max|logit|) on both; the
+    bf16 argmax agreement of phase 4 on the served image. Each bf16
+    path's argmax agreement with the f32 plain path (their rounding
+    floor) is printed beside: on the normal input both paths fall below
+    the serving bound alike, so that bound holds for images only."""
+    cfg = mu.MaskAttnUNetConfig(c_out=NUM_CLASSES, img_size=RES256_IMG,
+                                compute_dtype="bfloat16", attn_impl="flash")
+    params, mstate = mu.init(torch.Generator().manual_seed(0), cfg)
+    with torch.no_grad():
+        folded = mu.fold_bn_for_inference(
+            {k: v.cuda() for k, v in params.items()},
+            {k: v.cuda() for k, v in mstate.items()}, cfg)
+    masks = tuple(m.cuda() for m in mu.make_attention_masks(
+        torch.Generator().manual_seed(1), 1, RES256_IMG))
+    plans = mu.precompute_mask_plans(masks)
+    shape = (1, RES256_IMG, RES256_IMG, 3)
+    inputs = {
+        "served": torch.from_numpy(np.random.default_rng(15).integers(
+            0, 256, shape).astype(np.uint8)).cuda().float() / 255.0,
+        "normal": torch.from_numpy(np.random.default_rng(16).standard_normal(
+            shape).astype(np.float32)).cuda()}
+    rows = {}
+    for name, x in inputs.items():
+        logits = {}
+        for dtype in ("bfloat16", "float32"):
+            c = dataclasses.replace(cfg, compute_dtype=dtype)
+            p = (mu.cast_params_for_inference(folded)
+                 if dtype == "bfloat16" else folded)
+            with torch.no_grad():
+                zero_launches()
+                logits[dtype, "kernel"] = mu.apply(
+                    p, None, x, cfg=c, masks=masks, folded=True,
+                    mask_plans=plans)[0].semantic.float()
+                one = kernel_launches()
+                kernel_fn = fk.flash_fwd_nomax
+                fk.flash_fwd_nomax = fk.flash_fwd_nomax_reference
+                try:
+                    logits[dtype, "plain"] = mu.apply(
+                        p, None, x, cfg=c, masks=masks, folded=True,
+                        mask_plans=plans)[0].semantic.float()
+                finally:
+                    fk.flash_fwd_nomax = kernel_fn
+            free_card()
+            check(one == {**dict.fromkeys(counted_wrappers(), 0), "K1": 6},
+                  f"res256 {name} {dtype}: one forward launches K1 6 times, "
+                  f"no other kernel: {one}")
+        truth = logits["float32", "plain"].argmax(-1)
+        for dtype, tol in (("bfloat16", SERVE_LOGIT_TOL),
+                           ("float32", TOL[torch.float32])):
+            lk, lp = logits[dtype, "kernel"], logits[dtype, "plain"]
+            scale = float(lp.abs().max())
+            r = rows[f"{name}_{dtype}"] = {
+                "logits_finite": bool(torch.isfinite(lk).all()),
+                "logits_max_abs_diff_vs_plain": float((lk - lp).abs().max()),
+                "logits_max_abs": scale, "tol": tol * scale,
+                "argmax_agreement": float(
+                    (lk.argmax(-1) == lp.argmax(-1)).float().mean()),
+                "argmax_vs_f32_plain": {
+                    path: float((logits[dtype, path].argmax(-1) == truth)
+                                .float().mean())
+                    for path in ("kernel", "plain")}}
+            check(list(lk.shape) == [1, RES256_IMG, RES256_IMG, NUM_CLASSES]
+                  and r["logits_finite"],
+                  f"res256 {name} {dtype}: logits finite, [1,256,256,150]")
+            check(r["logits_max_abs_diff_vs_plain"] <= r["tol"],
+                  f"res256 {name} {dtype}: batch-1 logits kernel vs plain")
+        del logits, truth
+    check(rows["served_bfloat16"]["argmax_agreement"] >= SERVE_ARGMAX_AGREE,
+          "res256 served bfloat16: batch-1 argmax agreement kernel vs plain")
+    emit(phase="res256_vs_plain", card=card, batch=1, **rows)
+    return rows
+
+
+def phase_res256(card: str) -> dict:
+    """The 256 px configuration (phase 30): `res256_bench.run` at batch 8,
+    inference then train (the peak reset by each), its launches and
+    loss; the kernels at its six shapes; the batch-1 forward against the
+    plain path. Returns the two rows and the kernels' numbers."""
+    emit(phase="res256_start", card=card,
+         allocated_gib=free_card() / 2 ** 30)
+    rows = {}
+    for phase, train in (("inference", False), ("train", True)):
+        zero_launches()
+        row = res256_bench.run(RES256_IMG, BATCH, RES256_STEPS, train)
+        row["busy_share"] = (row["device_ms"] / row["wall_ms"]
+                             if row["device_ms"] else None)
+        emit(**{**row, "phase": "res256", "run": phase})
+        n = row["calls"]
+        want = ({"K1": 0, "K2": 6 * n, "K3": 0, "K4": 6 * n} if train
+                else {"K1": 6 * n, "K2": 0, "K3": 0, "K4": 0})
+        check(row["launches"] == want and kernel_launches()["K1"] == want["K1"],
+              f"res256 {phase}: K1 6 a forward, K2 6 and K4 6 a step over "
+              f"{n} calls: {row['launches']}")
+        check(row["card"] == card and row["peak_hbm_gib"] > 0
+              and isinstance(row["device_ms"], float),
+              f"res256 {phase}: card, peak GB and device ms measured")
+        if train:
+            check(all(np.isfinite(row["losses"]))
+                  and row["loss_last"] < row["loss_first"],
+                  f"res256: a finite loss that falls over "
+                  f"{RES256_STEPS} steps: {row['loss_first']} -> "
+                  f"{row['losses']}")
+        rows[phase] = row
+        free_card()
+    kernels = res256_kernels(card)
+    res256_forward_vs_plain(card)
+    free_card()
+    return {**rows, "kernels": kernels}
+
+
+def phase_serve_bench(card: str) -> dict:
+    """`tools/serve_bench.py` (phase 31) with the JAX tool's defaults (400
+    requests, concurrency 16, 4 client processes), in a subprocess, PNG
+    then raw: no failed request, the latency percentiles, a filled batch,
+    and the server's K1 launches 6 a batch."""
+    out = {}
+    for fmt, extra in (("png", []), ("raw", ["--raw"])):
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "maskunet_tpu_torch.tools.serve_bench",
+             *extra], capture_output=True, text=True, timeout=300,
+            cwd=ROOT, env=subprocess_env())
+        res = last_json(proc.stdout) or {}
+        emit(**{"card": card, **res, "phase": "serve_bench", "format": fmt,
+                "rc": proc.returncode, "seconds": time.monotonic() - t0,
+                "stderr": proc.stderr[-2000:] if proc.returncode else ""})
+        check(proc.returncode == 0 and res.get("failed_requests") == 0
+              and all(res.get(k) is not None
+                      for k in ("req_per_sec", "p50_ms", "p99_ms"))
+              and res.get("avg_batch_fill", 0) > 0,
+              f"serve_bench {fmt}: every request answered, req/s and "
+              f"latency measured, batches filled: {res}")
+        check(res.get("batches", 0) > 0
+              and res.get("kernel_launches") == {"K1": 6 * res["batches"],
+                                                 "K3": 0}
+              and res.get("client_imports_torch") is False,
+              f"serve_bench {fmt}: the server's K1 launches 6 a batch, no "
+              f"client imports torch: {res}")
+        out[fmt] = res
+    return out
+
+
+def serving_wall_img_s() -> float:
+    """The serving runner's wall-clock img/s as phase 5 times it (best of 3
+    windows of 10 batches, fenced by a synchronise), on a runner of its
+    own."""
+    runner, img_size = serve.build_model_runner(
+        "ade_semantic", NUM_CLASSES, None, compute_dtype="bfloat16",
+        batch_size=BATCH, device="cuda")
+    x = np.zeros((BATCH, img_size, img_size, 3), np.uint8)
+    runner(x).cpu()
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            runner(x)
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) / 10)
+    return BATCH / best
+
+
+def phase_serve_breakdown(card: str, serve_times: dict) -> dict:
+    """`tools/serve_breakdown.py` at batch 8 and 16 threads (phase 32),
+    in this process: stage A within BREAKDOWN_RTOL of the serving
+    forward's wall-clock img/s, timed as phase 5 times it just before
+    and just after the tool (the host's speed drifts over a run: phase
+    5's own number, minutes earlier, is printed beside)."""
+    before = serving_wall_img_s()
+    res = serve_breakdown.main([str(BATCH), "16"])
+    after = serving_wall_img_s()
+    serving_img_s = (before + after) / 2
+    rel = res["model_img_s"] / serving_img_s - 1
+    emit(**res, phase="serve_breakdown", serving_img_s=serving_img_s,
+         serving_img_s_before_after=[before, after],
+         serving_phase_img_s=BATCH / serve_times["wall_ms"] * 1e3,
+         a_vs_serving=rel, rtol=BREAKDOWN_RTOL)
+    check(abs(rel) <= BREAKDOWN_RTOL,
+          f"serve_breakdown: stage A {res['model_img_s']} img/s within "
+          f"{BREAKDOWN_RTOL:.0%} of serving's {serving_img_s:.1f}")
+    return res
+
+
+def phase_mfu(card: str, serve: dict, step: dict, res256: dict) -> dict:
+    """`tools/mfu_report.model_flops` at 128 and 256 px over the wall and
+    device times that the serving, train_time and res256 phases measured
+    (phase 33; nothing is timed again): every MFU in (0, 1)."""
+    out = {}
+    for img, times in ((IMG, {"fwd": serve, "train": step}),
+                       (RES256_IMG, {"fwd": res256["inference"],
+                                     "train": res256["train"]})):
+        fl = mfu_report.model_flops(img, NUM_CLASSES)
+        row = {"gflop_fwd_per_image": fl["fwd"] / 1e9,
+               "gflop_train_per_image": fl["train"] / 1e9}
+        for name, t in times.items():
+            for clock in ("wall", "device"):
+                row[f"{name}_ms_{clock}"] = t[f"{clock}_ms"]
+                row[f"{name}_mfu_{clock}"] = mfu_report.mfu(
+                    fl[name], BATCH, t[f"{clock}_ms"])
+        emit(phase="mfu", card=card, img_size=img, batch=BATCH,
+             peak_tflops=mfu_report.H100_PEAK_BF16 / 1e12, **row)
+        shares = {k: v for k, v in row.items() if "_mfu_" in k}
+        check(all(v is not None and 0 < v < 1 for v in shares.values()),
+              f"mfu at {img} px: every MFU in (0, 1): {shares}")
+        out[img] = row
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, err, t, **extra) -> dict:
     return {**extra, "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -3762,6 +4102,11 @@ def main() -> int:
         fk.flash_fwd_online_reference, seed=7, lse=True,
         body=fk.flash_fwd_online_body)
     tools = phase_tools(card)
+    res256 = phase_res256(card)
+    phase_serve_bench(card)
+    phase_serve_breakdown(card, totals["serve"])
+    phase_mfu(card, totals["serve"], train_totals["step"], res256)
+    r256 = res256["kernels"]["sums"]
     # every kernel of the port; K1-K4 times are summed over the six
     # attention shapes (one forward's or one step's launches), K5-K7's are
     # one call at their tool's attn6 inputs (K6: variant D, its repack
@@ -3787,7 +4132,10 @@ def main() -> int:
                      launches_int8=int8["K1"], launches_dp=dp["K1"],
                      launches_pipeline=pipe["K1"],
                      launches_dp_serve=dp_serve["K1"],
-                     launches_tp=tp["K1"]),
+                     launches_tp=tp["K1"],
+                     launches_res256=res256["inference"]["launches"]["K1"],
+                     res256_ms=r256["K1"]["ms"],
+                     res256_bound_ms=r256["K1"]["bound_ms"]),
         kernel_entry("flash_fwd_nomax_lse", fwd_src,
                      "maskunet_tpu/ops/flash_attention.py:267",
                      train_launches["K2"], kernel_lse["max_abs_err"],
@@ -3797,7 +4145,10 @@ def main() -> int:
                      launches_instance=instance["K2"],
                      launches_recipes=recipe_launches["K2"],
                      launches_dp=dp["K2"], launches_pipeline=pipe["K2"],
-                     launches_dp_serve=0, launches_tp=tp["K2"]),
+                     launches_dp_serve=0, launches_tp=tp["K2"],
+                     launches_res256=res256["train"]["launches"]["K2"],
+                     res256_ms=r256["K2"]["ms"],
+                     res256_bound_ms=r256["K2"]["bound_ms"]),
         kernel_entry("flash_fwd_online", online_src,
                      "maskunet_tpu/ops/flash_attention.py:111",
                      safe["K3"], kernel_online["max_abs_err"], online_totals,
@@ -3816,7 +4167,10 @@ def main() -> int:
                      launches_instance=instance["K4"],
                      launches_recipes=recipe_launches["K4"],
                      launches_dp=dp["K4"], launches_pipeline=pipe["K4"],
-                     launches_dp_serve=0, launches_tp=tp["K4"]),
+                     launches_dp_serve=0, launches_tp=tp["K4"],
+                     launches_res256=res256["train"]["launches"]["K4"],
+                     res256_ms=r256["K4"]["ms"],
+                     res256_bound_ms=r256["K4"]["bound_ms"]),
         kernel_entry("old_flash_fwd", online_src, "tools/softmax_ab.py:29",
                      tools["K5"]["launches"], tools["K5"]["max_abs_err"],
                      tools["K5"], bodies_bf16={"64": online_bodies["64"]}),

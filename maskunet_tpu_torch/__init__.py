@@ -30,7 +30,8 @@ same way so each module's counterpart sits at the same path:
             semantic, instance and panoptic evaluators, prediction over a
             directory of images
   tools/    A/B of kernel variants on the card, the fake on-disk layouts,
-            the nine recipes end to end
+            the nine recipes end to end, HTTP serving load and its
+            breakdown, the 256 px configuration, the FLOPs account
   serve.py  the micro-batching HTTP server (live, int8, or from an
             exported artifact)
   export.py serving artifacts through `torch.export`, the flash kernels
@@ -39,7 +40,6 @@ same way so each module's counterpart sits at the same path:
             predict, export, import-torch
 
 It imports torch and numpy, never jax or anything of `maskunet_tpu`.
-Everything of the JAX package is ported but the parallel axes
-(`parallel/*`, `--n-data`, `--pipeline`, `--distributed`), which the CLI
-and the server refuse.
+Every module of the JAX package has its counterpart (the parallel axes
+under `parallel/` too); of the repo's `tools/`, the ones named above.
 """

@@ -10,6 +10,8 @@ Counterpart of maskunet_tpu/utils/profiling.py:
 - `StallWatchdog`: detects a hung device step and surfaces it instead of
   letting the training process block forever inside a device sync that
   Python cannot interrupt (this package's own copy of the JAX one).
+- `device_ms_per_call(fn)`: the card's kernel time a call, by the
+  profiler (the tools' device times).
 """
 
 from __future__ import annotations
@@ -136,3 +138,27 @@ class StallWatchdog:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=self._poll_s + 1.0)
+
+
+def device_ms_per_call(fn: Callable[[], object], calls: int = 3
+                       ) -> float | None:
+    """The card's kernel time a call of `fn`: the profiler's sum of device
+    kernel times over `calls` calls (a user annotation on the device spans
+    kernels that are counted already), divided by `calls`. A host-bound
+    call leaves the card idle between launches; this counts only its busy
+    time. None on the CPU, or where the profiler saw no kernel."""
+    if not torch.cuda.is_available():
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and e.self_device_time_total > 0 and not e.is_user_annotation)
+    return us / calls / 1e3 if us else None
