@@ -4,6 +4,7 @@
     python3 chip_smoke.py
 
     python3 chip_smoke.py --safe-export <dir>   # phase 21's child
+    python3 chip_smoke.py --export <dir> <dtype> <int8|none>   # phase 22's
 
 Phases (each prints JSON lines; any failure exits non-zero and prints no
 final result):
@@ -149,7 +150,9 @@ final result):
     image's map independent of its batch-mates (exact), no float conv,
     K1 6 a forward; the int8 artifact agrees with the live int8 runner
     above 0.95, and in f32 is under 0.45 of the float artifact's bytes
-    (JAX's bounds, tests/test_quantize.py); ms a batch int8 vs bf16.
+    (JAX's bounds, tests/test_quantize.py); ms a batch int8 vs bf16. Its
+    three artifacts are exported by children of this script (`--export`)
+    started with phase 21, so that their tracing overlaps it.
 23. cli: `python -m maskunet_tpu_torch.cli` in subprocesses on the fake
     layouts: recipes, train (ade_semantic 4 steps, city_instance 2),
     visualize (fails naming matplotlib where the host has none),
@@ -229,6 +232,38 @@ final result):
 33. mfu: `tools/mfu_report.model_flops` at 128 and 256 px over the wall
     and device times of the serving, train_time and res256 phases
     (nothing timed again): every MFU in (0, 1).
+34. profile: `tools/profile_step.run` in this process at 128 px (batch 8,
+    3 traced calls) and 256 px (batch 8, 1), the folded bf16 forward and
+    the train step each warmed and then traced: the top device ops a
+    call by the profiler's kernel names (`tools/parse_xplane`); the
+    trace names K1 6 times a forward, K2 and K4 6 times each a step, as
+    the launch counters count them; the trace's device ms a call within
+    15% of `utils/profiling.device_ms_per_call` on the same call.
+35. paritycheck: `tools/tpu_kernel_paritycheck.py`'s main: the flash path
+    against dense attention, forward and gradient in exact f32, at L
+    1,024 / 2,048 / 4,096 (C 64) and 4,096 (C 128), batch 2, and at
+    16,384 (C 64, batch 1, the compacted path) against the chunked dense
+    reference: JAX's gate at each, K1, K2 and K4 launched at each.
+36. training_parity: `tools/training_parity.py` at its defaults (20 steps
+    at 16 px, the four loss patterns): the port's step against the torch
+    oracle (tests/torch_oracle.py, loaded by path) on the card in exact
+    f32; steps 0 and 1 within 1e-5 and 1e-4 in each pattern, JAX's three
+    gates in each but `embed`, where any two f32 implementations part
+    chaotically (PARITY_CHAOTIC): its statistics and verdict printed.
+37. breakdowns: `tools/fwd_breakdown.py` (six modes), `train_breakdown.py`
+    (full, noattn, no16k, nodrop, nobnstat, sgd) and `trunk_breakdown.py`
+    (five variants) at batch 8, 128 px, with windows of 5 calls, best of
+    2, and 2 device-time calls (the step: 1): wall and device ms of
+    each; the flash
+    launches as each mode leaves them; 'full' within 15% of the serving
+    and train profiles' device ms; every patched function the original
+    again after each tool.
+38. data_bench (after data_rate, on its 512 px layout): `tools/
+    data_bench.run` at 1 and 4 threads, 1 epoch: JAX's keys, the 64
+    images delivered to the card each time.
+39. eval_scale: `tools/eval_scale_bench.py` at 500 images x 120
+    categories in a subprocess started before phase 34 (host work, beside
+    the card's phases 34-37): the native library loaded, JAX's JSON keys.
 
 It imports torch, numpy and the port, nothing of JAX.
 """
@@ -266,12 +301,18 @@ from maskunet_tpu_torch.tasks import evaluators, predict, recipes
 from maskunet_tpu_torch.tasks.datasets import make_datasets
 from maskunet_tpu_torch.tools import bf16_softmax_experiment as bf16_tool
 from maskunet_tpu_torch.tools import make_fake_dataset as fake_data
-from maskunet_tpu_torch.tools import (mfu_report, res256_bench,
-                                      serve_breakdown, softmax_ab)
+from maskunet_tpu_torch.tools import (data_bench, fwd_breakdown,
+                                      mfu_report, parse_xplane,
+                                      profile_step, res256_bench,
+                                      serve_breakdown, softmax_ab,
+                                      tpu_kernel_paritycheck,
+                                      train_breakdown, training_parity,
+                                      trunk_breakdown)
 from maskunet_tpu_torch.train import loop as train_loop
 from maskunet_tpu_torch.train import step as train_step
 from maskunet_tpu_torch.utils import torch_import
 from maskunet_tpu_torch.utils import visualize
+from maskunet_tpu_torch.utils.profiling import device_ms_per_call
 
 BATCH = 8
 IMG = 128
@@ -2395,6 +2436,42 @@ def safe_export_child(out_dir: str) -> int:
     return 0 if ok else 1
 
 
+# phase 22's artifacts, each exported by a child process of its own
+# (`--export`), started with phase 21 so that their tracing overlaps it
+INT8_ARTIFACTS = (("int8_bf16", "bfloat16", "int8"),
+                  ("int8_f32", "float32", "int8"),
+                  ("float_f32", "float32", "none"))
+
+
+def export_child(path: str, dtype: str, quantize: str) -> int:
+    """`chip_smoke.py --export <dir> <dtype> <int8|none>`, started by
+    `start_int8_exports` for phase `int8`: one serving artifact of the
+    seeded ADE model (c_out 150, 128x128, batch 8) on the card; prints its
+    export seconds and bytes."""
+    t0 = time.monotonic()
+    export_lib.export_serving_artifact(
+        "ade_semantic", NUM_CLASSES, None, "best", path, compute_dtype=dtype,
+        batch_size=BATCH, device="cuda",
+        quantize=None if quantize == "none" else quantize)
+    print(json.dumps({"export_s": time.monotonic() - t0, "bytes":
+                      os.path.getsize(os.path.join(
+                          path, export_lib.MODULE_NAME))}), flush=True)
+    return 0
+
+
+def start_int8_exports(work: str) -> dict:
+    """The children that export phase 22's three artifacts into `work`:
+    {name: (path, Popen)}."""
+    out = {}
+    for name, dtype, quantize in INT8_ARTIFACTS:
+        path = os.path.join(work, f"artifact_{name}")
+        out[name] = (path, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--export", path,
+             dtype, quantize], cwd=ROOT, env=subprocess_env(),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return out
+
+
 def free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -2526,7 +2603,7 @@ def phase_export(card: str, work: str) -> dict:
             "bytes": res["bytes"], "live": live}
 
 
-def phase_int8(card: str, work: str, calib_dir: str, live_bf16,
+def phase_int8(card: str, exports: dict, calib_dir: str, live_bf16,
                bf16_bytes: int) -> dict:
     """int8 serving on the card (phase 22), the ADE model at c_out 150,
     128x128, batch 8, bf16: dynamic scales, and static ones calibrated on
@@ -2537,7 +2614,9 @@ def phase_int8(card: str, work: str, calib_dir: str, live_bf16,
     forward; the int8 artifact (bf16, dynamic) agrees with the live int8
     runner above INT8_ARTIFACT_AGREE, and the int8 artifact exported in
     f32 is under INT8_BYTES of the float one in f32 (JAX's bound); the
-    bf16 ratio is printed. ms a batch int8 against bf16, printed."""
+    bf16 ratio is printed. ms a batch int8 against bf16, printed. The
+    three artifacts come from `exports` (`start_int8_exports`), whose
+    children must have exported each one."""
     ds = predict._DirectoryDataset(calib_dir, IMG)
     images = np.stack([ds[i]["image"] for i in range(len(ds))])
     batches = [images[i:i + BATCH] for i in range(0, len(images), BATCH)]
@@ -2580,17 +2659,14 @@ def phase_int8(card: str, work: str, calib_dir: str, live_bf16,
           f"on its batch-mates: {invariant}")
 
     art = {}
-    for name, dtype in (("int8_bf16", "bfloat16"), ("int8_f32", "float32"),
-                        ("float_f32", "float32")):
-        path = os.path.join(work, f"artifact_{name}")
-        t0 = time.monotonic()
-        export_lib.export_serving_artifact(
-            "ade_semantic", NUM_CLASSES, None, "best", path,
-            compute_dtype=dtype, batch_size=BATCH, device="cuda",
-            quantize=None if name.startswith("float") else "int8")
-        art[name] = {"path": path, "export_s": time.monotonic() - t0,
-                     "bytes": os.path.getsize(os.path.join(
-                         path, export_lib.MODULE_NAME))}
+    t0 = time.monotonic()
+    for name, r in finish({n: p for n, (_, p) in exports.items()}).items():
+        line = last_json(r[1]) or {}
+        check(r[0] == 0 and "bytes" in line,
+              f"int8: the {name} artifact exported: rc {r[0]} {r[2][-600:]}")
+        art[name] = {"path": exports[name][0], "bytes": line.get("bytes", 1),
+                     "export_s": line.get("export_s")}
+    export_wait_s = time.monotonic() - t0
     res = artifact_vs_live(art["int8_bf16"]["path"], dynamic, "K1")
     art_agree = float(np.mean([float((g == w).float().mean())
                                for g, w in zip(res["got"], res["want"])]))
@@ -2615,6 +2691,7 @@ def phase_int8(card: str, work: str, calib_dir: str, live_bf16,
          bf16_artifact_bytes=bf16_bytes, bytes_ratio_f32=ratio_f32,
          bytes_ratio_vs_bf16=ratio_bf16,
          export_s={k: v["export_s"] for k, v in art.items()},
+         export_wait_s=export_wait_s,
          ms_per_batch={k: {m: mean_ms(v[m]) for m in v}
                        for k, v in times.items()}, turns=times)
     return {"K1": launches["K1"] + res["launches"]["K1"]}
@@ -2656,15 +2733,16 @@ def phase_cli(card: str, roots: dict, work: str,
               matplotlib: str | None) -> None:
     """The command line on the card (phase 23), each command a subprocess
     of `python -m maskunet_tpu_torch.cli` on the fake layouts of
-    `recipes`, in three stages of parallel processes: `recipes`, `train`
+    `recipes`, in two stages of parallel processes: `recipes`, `train`
     (ade_semantic, 4 steps; city_instance, 2 steps) and `visualize` (no
     matplotlib on the card's host: it must fail naming it); then
     `evaluate` (ade_semantic; city_instance with `--mode instances`),
-    `predict`, `export --quantize int8` and `import-torch` of a
-    `module.`-prefixed .pth this script writes with `torch.save` from the
-    trained ade_semantic state; then `evaluate` of the imported workdir,
-    equal to that of the source state. Each JSON line is parsed and its
-    keys checked."""
+    `predict`, `export --quantize int8`, and beside them `import-torch`
+    of a `module.`-prefixed .pth this script writes with `torch.save`
+    from the trained ade_semantic state followed by `evaluate` of the
+    imported workdir, equal to that of the source state. Each JSON line
+    is parsed and its keys checked. `stage_seconds`: stage A, stage B's
+    parallel processes, and how long the import chain outlasted them."""
     ade, city = roots["ade20k"], roots["cityscapes"]
     w_ade, w_city = os.path.join(work, "ade"), os.path.join(work, "city")
     common = ("--data-root", ade, "--recipe", "ade_semantic")
@@ -2726,8 +2804,20 @@ def phase_cli(card: str, roots: dict, work: str,
     torch.save({f"module.{k}": v for k, v in sd.items()}, pth)
     del ts
     w_imp = os.path.join(work, "imported")
+
+    def imported():
+        """import-torch, then the evaluation of its workdir (stage B's
+        longest process outlasts the two in turn)."""
+        got = finish({"import-torch": start_cli(
+            "import-torch", *common, "--workdir", w_imp,
+            "--torch-checkpoint", pth)})
+        return {**got, **finish({"evaluate_imported": start_cli(
+            "evaluate", *common, "--workdir", w_imp)})}
+
     t0 = time.monotonic()
-    b = finish({
+    with ThreadPoolExecutor(1) as pool:
+        chain = pool.submit(imported)
+        b = finish({
         "evaluate": start_cli("evaluate", *common, "--workdir", w_ade,
                               "--tag", "latest", "--attn-output-layout",
                               "literal_view"),
@@ -2742,16 +2832,12 @@ def phase_cli(card: str, roots: dict, work: str,
         "export": start_cli("export", *common, "--workdir", w_ade, "--tag",
                             "latest", "--out", os.path.join(work, "art8"),
                             "--quantize", "int8"),
-        "import-torch": start_cli("import-torch", *common, "--workdir",
-                                  w_imp, "--torch-checkpoint", pth),
         "evaluate_n1": start_cli("evaluate", *common, "--workdir", w_ade,
                                  "--tag", "latest", "--attn-output-layout",
                                  "literal_view", "--n-data", "1")})
-    stage_b = time.monotonic() - t0
-    t0 = time.monotonic()
-    c = finish({"evaluate_imported": start_cli("evaluate", *common,
-                                               "--workdir", w_imp)})
-    stage_c = time.monotonic() - t0
+        stage_b = time.monotonic() - t0
+        c = chain.result()
+    stage_c = time.monotonic() - t0 - stage_b
     for name, r in {**b, **c}.items():
         results[name] = (r[0], last_json(r[1]))
         check(r[0] == 0 and results[name][1] is not None,
@@ -4025,6 +4111,304 @@ def phase_mfu(card: str, serve: dict, step: dict, res256: dict) -> dict:
     return out
 
 
+# --- the profiling and parity tools (phases 34-39) ---------------------------
+
+PROFILE_RTOL = 0.15           # the trace's device ms vs device_ms_per_call
+PROFILE_RUNS = ((IMG, 3), (RES256_IMG, 1))     # (img, traced calls)
+FWD_TAG = "fwd_nomax"         # K1's and K2's kernels, every body
+# training_parity: the port's loss against the oracle's at step 0 (the
+# forward on the same weights) and at step 1 (after one AdamW update);
+# the tests hold step 0 to 1e-5 as well
+PARITY_STEP_RTOL = (1e-5, 1e-4)
+# The pattern whose lockstep statistics measure f32 noise, not the port: in
+# `embed` (the triplet on ReLU'd embeddings) any two f32 implementations
+# of the same step part chaotically (tests/parity_chaos.py). On a CPU,
+# JAX's step and the port's part by 6.5e-3 by step 4 and 1.6e-2 by step
+# 7, as much as either parts from the oracle, and the oracle parts from
+# itself on the same inputs at another thread count by 1.7e-2 by step 4;
+# on the card each side parts from itself run to run by 1-2e-2 by step 8.
+# The cumulative statistic, gated at 1%, reads 0.88% for JAX's tool,
+# 0.92% and 1.08% for the port's at 4 and 1 CPU threads, and 0.95-1.55%
+# in five runs on the card. Its statistics and the verdict are printed.
+PARITY_CHAOTIC = ("embed",)
+BREAKDOWN_DEVICE_RTOL = 0.15  # a breakdown's 'full' vs the profile phases
+BREAKDOWN_WINDOWS = dict(steps=5, repeats=2, device_calls=2)
+# the step's: one device-time call a mode (a profiled step of 3,330
+# launches takes seconds to summarise)
+TRAIN_BREAKDOWN_WINDOWS = dict(BREAKDOWN_WINDOWS, device_calls=1)
+TRAIN_BREAKDOWN_MODES = ("full", "noattn", "no16k", "nodrop", "nobnstat",
+                         "sgd")
+# the flash layers each breakdown mode leaves at 128 px (the others are the
+# identity, or the dense path for dense_small's small layers)
+FLASH_LAYERS = {"full": 6, "noattn": 0, "no16k": 5, "no4k": 4, "nosmall": 3,
+                "dense_small": 3, "nodrop": 6, "nobnstat": 6, "sgd": 6}
+EVAL_SCALE_ARGS = (500, 120)  # images x categories (the tool's: 5,000)
+EVAL_SCALE_KEYS = {"n_images", "n_cats", "ap_seconds", "pq_1000img_seconds",
+                   "inst_extract_img_per_sec", "ok"}
+
+
+def kernel_kind(name: str) -> str:
+    """The family of a device op by its profiler name: the flash kernels,
+    cuDNN's and cuBLAS's convs and matmuls, reductions (the norms' sums,
+    the loss), elementwise passes, copies (dtype casts, cat, memcpy),
+    other."""
+    low = name.lower()
+    if FWD_TAG in name:
+        return "K1/K2"
+    if K4_TAG in name:
+        return "K4"
+    if any(t in low for t in ("xmma", "cutlass", "nvjet", "gemm", "conv")):
+        return "conv_matmul"
+    if "reduce_kernel" in name:
+        return "reduction"
+    if "copy" in low or name.startswith(("Memcpy", "Memset")):
+        return "copy"
+    if "elementwise" in name:
+        return "elementwise"
+    return "other"
+
+
+def patch_targets() -> list:
+    """Every module attribute a breakdown tool patches, as it is now."""
+    from maskunet_tpu_torch.ops import attention, metrics_ops
+    return [attention.spatial_attention, layers.gelu, layers.layernorm,
+            layers.upsample_2x_bilinear, layers.batchnorm_train,
+            metrics_ops.mean_iou, train_step.cross_entropy]
+
+
+def phase_profile(card: str, serve_times: dict, step_times: dict,
+                  res256: dict) -> dict:
+    """`tools/profile_step.run` (phase 34) at 128 px (batch 8, 3 traced
+    calls) and 256 px (batch 8, 1): for the forward and the step, the top
+    device ops a call by the profiler's kernel names (`parse_xplane`);
+    the kernels named K1 (6 a forward), K2 and K4 (6 each a step), as the
+    launch counters say too; the trace's device ms a call within
+    PROFILE_RTOL of `device_ms_per_call` on the same call. The serving,
+    train and res256 phases' device ms are printed beside."""
+    out = {}
+    earlier = {IMG: {"fwd": serve_times["device_ms"],
+                     "train": step_times["device_ms"]},
+               RES256_IMG: {"fwd": res256["inference"]["device_ms"],
+                            "train": res256["train"]["device_ms"]}}
+    for img, calls in PROFILE_RUNS:
+        work = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+        t0 = time.monotonic()
+        try:
+            res = profile_step.run(BATCH, work, calls, img_size=img)
+            for phase, want in (("fwd", {"K1": 6}),
+                                ("train", {"K2": 6, "K4": 6})):
+                events = parse_xplane.device_events(res[phase])
+                times = {n: ms for plane in parse_xplane.op_times(
+                    res[phase]).values() for n, ms in plane.items()}
+                total = sum(times.values()) / calls
+                named = {"K1/K2": sum(FWD_TAG in n for _, n, _ in events),
+                         "K4": sum(K4_TAG in n for _, n, _ in events)}
+                named_want = {"K1/K2": 6 * calls,
+                              "K4": 6 * calls if phase == "train" else 0}
+                launches = res["launches"][phase]
+                launches_want = {k: 6 * calls * (k in want)
+                                 for k in ("K1", "K2", "K3", "K4")}
+                dev_ms = device_ms_per_call(res["calls"][phase],
+                                            calls=max(calls, 2))
+                rel = total / dev_ms - 1 if dev_ms else None
+                top = sorted(times.items(), key=lambda kv: -kv[1])
+                by_kind = {}
+                for name, ms in times.items():
+                    kind = kernel_kind(name)
+                    by_kind[kind] = by_kind.get(kind, 0.0) + ms / calls
+                emit(phase="profile", card=card, img_size=img, batch=BATCH,
+                     run=phase, traced_calls=calls,
+                     device_ms_per_call_trace=total,
+                     device_ms_per_call_profiler=dev_ms, rel=rel,
+                     rtol=PROFILE_RTOL,
+                     earlier_phase_device_ms=earlier[img][phase],
+                     kernels_named=named, launches=launches,
+                     device_events_per_call=len(events) / calls,
+                     ms_per_call_by_kind=by_kind,
+                     top=[{"name": n[:200], "ms_per_call": ms / calls,
+                           "share": ms / calls / total}
+                          for n, ms in top[:25]])
+                check(named == named_want and launches == launches_want,
+                      f"profile {img} px {phase}: the trace names the flash "
+                      f"kernels 6 times a call ({named}, want {named_want}) "
+                      f"and the counters agree ({launches})")
+                check(rel is not None and abs(rel) <= PROFILE_RTOL,
+                      f"profile {img} px {phase}: the trace's {total:.3f} "
+                      f"ms a call within {PROFILE_RTOL:.0%} of "
+                      f"device_ms_per_call's {dev_ms}")
+                out[(img, phase)] = total
+            del res
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        free_card()
+        emit(phase="profile_time", card=card, img_size=img,
+             seconds=time.monotonic() - t0)
+    return out
+
+
+def phase_paritycheck(card: str) -> list:
+    """`tools/tpu_kernel_paritycheck.py`'s main (phase 35): the flash path
+    against dense attention at JAX's four shapes and against
+    `dense_chunked` at 16,384 tokens (the compacted path), forward and
+    gradient in exact f32, each passing JAX's gate and launching K1, K2
+    and K4 (the tool checks both); no K3."""
+    zero_launches()
+    t0 = time.monotonic()
+    try:
+        rows, failed = tpu_kernel_paritycheck.main([]), None
+    except SystemExit as e:
+        rows, failed = [], str(e)
+    launches = kernel_launches()
+    emit(phase="paritycheck", card=card, rows=rows, failed=failed,
+         launches=launches, seconds=time.monotonic() - t0)
+    check(failed is None and len(rows) == 5 and all(r["ok"] for r in rows)
+          and all(min(r["launches"].values()) > 0 for r in rows),
+          f"paritycheck: five shapes within JAX's gate, K1, K2 and K4 "
+          f"launched at each: {failed} {rows}")
+    check(launches["K3"] == 0 and launches["K2"] == launches["K4"] == sum(
+              r["launches"]["K4"] for r in rows),
+          f"paritycheck: no K3; K2 with each K4: {launches}")
+    return rows
+
+
+def phase_training_parity(card: str) -> dict:
+    """`tools/training_parity.py` at its defaults (phase 36): the port's
+    step against the torch oracle in lockstep, 20 steps at 16 px, the four
+    loss patterns, both on the card in exact f32. In every pattern the
+    loss of step 0 (the same weights and batch) and of step 1 (after one
+    AdamW update) agree within PARITY_STEP_RTOL; JAX's three gates hold
+    in every pattern but PARITY_CHAOTIC, whose statistics and the gates'
+    verdict are printed (see PARITY_CHAOTIC)."""
+    t0 = time.monotonic()
+    worst = training_parity.run()
+    failed = training_parity.gate_failures(worst)
+    stats = {t: {k: v[k] for k in training_parity.LIMITS}
+             for t, v in worst.items()}
+    early = {t: [abs(p - o) / abs(o) for p, o in zip(
+        v["port_losses"][:2], v["oracle_losses"][:2])]
+        for t, v in worst.items()}
+    emit(phase="training_parity", card=card, stats=stats,
+         limits=training_parity.LIMITS, gate_failures=failed,
+         steps_0_1_rel=early, steps_0_1_rtol=PARITY_STEP_RTOL,
+         rel_by_step={t: [abs(p - o) / abs(o) for p, o in zip(
+             v["port_losses"], v["oracle_losses"])]
+             for t, v in worst.items()},
+         seconds=time.monotonic() - t0)
+    check(list(stats) == list(training_parity.TASKS) and all(
+              all(r <= tol for r, tol in zip(rel, PARITY_STEP_RTOL))
+              for rel in early.values()),
+          f"training_parity: steps 0 and 1 within {PARITY_STEP_RTOL} in "
+          f"every pattern: {early}")
+    check(all(t in PARITY_CHAOTIC for t, _, _ in failed),
+          f"training_parity: JAX's gates in "
+          f"{[t for t in stats if t not in PARITY_CHAOTIC]}: {failed}")
+    return stats
+
+
+def phase_breakdowns(card: str, serve_times: dict, step_times: dict
+                     ) -> dict:
+    """The three breakdown tools (phase 37) with short windows
+    (BREAKDOWN_WINDOWS, the step's TRAIN_BREAKDOWN_WINDOWS): the
+    forward's six modes, the step's TRAIN_BREAKDOWN_MODES, the trunk's
+    five variants. Each mode's wall and device ms; the forward's and the
+    step's 'full' device ms within BREAKDOWN_DEVICE_RTOL of the serving
+    and train profiles'; the flash kernels launched as the modes leave
+    them (K1 in the forwards, K2 and K4 in the steps, none in the trunk);
+    every patched function the original again after each tool."""
+    w, wt = BREAKDOWN_WINDOWS, TRAIN_BREAKDOWN_WINDOWS
+
+    def calls(windows):
+        return 1 + windows["steps"] * windows["repeats"] + \
+            windows["device_calls"]
+
+    runs = {
+        "fwd": (lambda: fwd_breakdown.run(BATCH, fwd_breakdown.MODES, **w),
+                {"K1": calls(w) * sum(FLASH_LAYERS[m]
+                                      for m in fwd_breakdown.MODES)}, w),
+        # a step tool's mode also takes one last call for its loss
+        "train": (lambda: train_breakdown.run(BATCH, TRAIN_BREAKDOWN_MODES,
+                                              **wt),
+                  {k: (calls(wt) + 1) * sum(FLASH_LAYERS[m]
+                                            for m in TRAIN_BREAKDOWN_MODES)
+                   for k in ("K2", "K4")}, wt),
+        "trunk": (lambda: trunk_breakdown.run(
+            BATCH, trunk_breakdown.VARIANTS, **w), {}, w)}
+    out = {}
+    for tool, (run, want, windows) in runs.items():
+        before = patch_targets()
+        zero_launches()
+        t0 = time.monotonic()
+        res = run()
+        launches = kernel_launches()
+        restored = patch_targets() == before
+        emit(phase="breakdowns", card=card, tool=tool, batch=BATCH,
+             windows=windows, results=res, launches=launches,
+             restored=restored,
+             seconds=time.monotonic() - t0)
+        check(restored, f"breakdowns {tool}: every patched function is the "
+              f"original again")
+        check(launches == {**dict.fromkeys(counted_wrappers(), 0), **want},
+              f"breakdowns {tool}: the flash kernels as the modes leave "
+              f"them: {launches}, want {want}")
+        check(all(isinstance(r["device_ms"], float) for r in res.values()),
+              f"breakdowns {tool}: device ms beside every wall time")
+        out[tool] = res
+    for tool, earlier in (("fwd", serve_times), ("train", step_times)):
+        got, ref = out[tool]["full"]["device_ms"], earlier["device_ms"]
+        rel = got / ref - 1 if got and ref else None
+        emit(phase="breakdowns_vs_profile", card=card, tool=tool,
+             full_device_ms=got, profile_device_ms=ref, rel=rel,
+             rtol=BREAKDOWN_DEVICE_RTOL)
+        check(rel is not None and abs(rel) <= BREAKDOWN_DEVICE_RTOL,
+              f"breakdowns {tool}: 'full' {got} device ms within "
+              f"{BREAKDOWN_DEVICE_RTOL:.0%} of the profile's {ref}")
+    return out
+
+
+def phase_data_bench(card: str, root: str) -> list:
+    """`tools/data_bench.run` (phase 38) on `data_rate`'s 512 px layout at
+    1 and 4 threads for 1 epoch: JAX's keys, every whole batch of the
+    64 images delivered to the card each time."""
+    t0 = time.monotonic()
+    rows = data_bench.run(root, BATCH, 1, (1, 4))
+    emit(phase="data_bench", card=card, side=DATA_RATE_SIDE, rows=rows,
+         seconds=time.monotonic() - t0)
+    check([r["threads"] for r in rows] == [1, 4] and all(
+              r["images"] == DATA_RATE_IMAGES // BATCH * BATCH
+              and r["dataset_images"] == DATA_RATE_IMAGES
+              and r["img_per_sec"] > 0 for r in rows),
+          f"data_bench: every whole batch at each thread count: {rows}")
+    return rows
+
+
+def start_eval_scale() -> subprocess.Popen:
+    """`tools/eval_scale_bench.py` at EVAL_SCALE_ARGS in a subprocess: host
+    work, run beside the card's phases 34-37."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "maskunet_tpu_torch.tools.eval_scale_bench",
+         *map(str, EVAL_SCALE_ARGS)], cwd=ROOT,
+        env=subprocess_env(CUDA_VISIBLE_DEVICES=""), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def phase_eval_scale(card: str, proc: subprocess.Popen, started: float
+                     ) -> dict:
+    """The evaluation at scale (phase 39): the tool's lines, the native
+    library loaded, JAX's JSON keys at EVAL_SCALE_ARGS."""
+    t0 = time.monotonic()
+    r = finish({"eval_scale": proc})["eval_scale"]
+    row = last_json(r[1]) or {}
+    emit(phase="eval_scale", card=card, rc=r[0], row=row,
+         lines=r[1].splitlines()[:-1], stderr=r[2][-600:] if r[0] else "",
+         waited_s=time.monotonic() - t0, seconds=time.monotonic() - started)
+    check(r[0] == 0 and set(row) == EVAL_SCALE_KEYS
+          and (row["n_images"], row["n_cats"]) == EVAL_SCALE_ARGS
+          and r[1].startswith("native kernels: True"),
+          f"eval_scale: JAX's keys at {EVAL_SCALE_ARGS}, the native "
+          f"library loaded: {row} {r[2][-300:]}")
+    return row
+
+
 def kernel_entry(name, source, replaces, launches, err, t, **extra) -> dict:
     return {**extra, "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -4044,6 +4428,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--safe-export"]:
         return safe_export_child(sys.argv[2])
+    if sys.argv[1:2] == ["--export"]:
+        return export_child(*sys.argv[2:5])
     t0 = time.monotonic()
     card = phase_device()
     libs = phase_image_io(card)
@@ -4064,6 +4450,7 @@ def main() -> int:
     panoptic = phase_panoptic_loop(card, loop)
     instance = phase_instance_loop(card, loop)
     data_dir = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    int8_exports = {}
     try:
         t0_layouts = time.monotonic()
         roots = write_fake_layouts(data_dir)
@@ -4078,14 +4465,20 @@ def main() -> int:
         del pan_state
         extras = os.path.join(data_dir, "extras")
         os.makedirs(extras)
+        int8_exports = start_int8_exports(extras)
         exported = phase_export(card, extras)
-        int8 = phase_int8(card, extras,
+        int8 = phase_int8(card, int8_exports,
                           os.path.join(roots["ade20k"], "images", "training"),
                           exported.pop("live"), exported["bytes"])
         phase_cli(card, roots, os.path.join(data_dir, "cli"),
                   libs["matplotlib"])
         phase_data_rate(card, os.path.join(data_dir, "ade512"))
+        phase_data_bench(card, os.path.join(data_dir, "ade512"))
     finally:
+        for _, proc in int8_exports.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
         shutil.rmtree(data_dir, ignore_errors=True)
     dp, parallel = phase_dp_train(card)
     phase_dp_nccl(card)
@@ -4106,6 +4499,18 @@ def main() -> int:
     phase_serve_bench(card)
     phase_serve_breakdown(card, totals["serve"])
     phase_mfu(card, totals["serve"], train_totals["step"], res256)
+    eval_started = time.monotonic()
+    eval_proc = start_eval_scale()
+    try:
+        phase_profile(card, totals["serve"], train_totals["step"], res256)
+        phase_paritycheck(card)
+        phase_training_parity(card)
+        phase_breakdowns(card, totals["serve"], train_totals["step"])
+        phase_eval_scale(card, eval_proc, eval_started)
+    finally:
+        if eval_proc.poll() is None:
+            eval_proc.kill()
+            eval_proc.communicate()
     r256 = res256["kernels"]["sums"]
     # every kernel of the port; K1-K4 times are summed over the six
     # attention shapes (one forward's or one step's launches), K5-K7's are

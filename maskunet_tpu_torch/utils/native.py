@@ -7,6 +7,7 @@ processes that build at once do not collide). No `-march=native`: the
 built library may be copied between hosts. A failed build raises; there
 is no fallback (the JAX package falls back to cv2 and numpy).
 
+- `available()`: the library loads (building it at first use).
 - `cc_label(mask) -> (num_labels, labels)`: 8-connectivity connected
   components (cv2.connectedComponents-compatible).
 - `mask_iou(dt_masks, gt_masks, iscrowd) -> [nd, ng] IoU matrix`
@@ -70,6 +71,12 @@ def _lib() -> ctypes.CDLL:
             lib.mask_iou.restype = None
             _LIB.append(lib)
         return _LIB[0]
+
+
+def available() -> bool:
+    """Whether the library is loaded, building it first if needed (JAX's
+    `available`; without a fallback here, a failed build raises)."""
+    return _lib() is not None
 
 
 def _ptr(a: np.ndarray, t):
