@@ -5,6 +5,7 @@
 
     python3 chip_smoke.py --safe-export <dir>   # phase 21's child
     python3 chip_smoke.py --export <dir> <dtype> <int8|none>   # phase 22's
+    python3 chip_smoke.py --remat-ab                # phase 42's child
 
 Phases (each prints JSON lines; any failure exits non-zero and prints no
 final result):
@@ -136,7 +137,8 @@ final result):
 20. op_dispatch (right after the serving times): the serving forward with
     K1 launched directly, as the eager wrapper does, and through the
     operator `maskunet::flash_fwd_nomax` that exported artifacts call, in
-    turns: 6 launches a forward both ways, device ms within 2%, wall ms.
+    3 rounds of turns: 6 launches a forward both ways, the mean device ms
+    of 6 samples a way within 2%, wall ms.
 21. export (after predict): the ADE serving model (c_out 150, 128x128,
     batch 8, bf16, seeded init) exported with `torch.export` and loaded
     back: over 16 images its maps equal the live runner's exactly, K1 6
@@ -264,14 +266,46 @@ final result):
 39. eval_scale: `tools/eval_scale_bench.py` at 500 images x 120
     categories in a subprocess started before phase 34 (host work, beside
     the card's phases 34-37): the native library loaded, JAX's JSON keys.
+40. ab_tools (beside 23's stage B, while its processes run):
+    `tools/{infer_ab,plan_ab,opt_ab,quant_ab,conv_ab,conv_model_ab,
+    lane_ab}.py` in this process at batch 8, 128 px, one window of 3
+    calls a timed function and one device-time call (`conv_model_ab`
+    with `--train`):
+    finite wall times; each tool's K1, K2 and K4 launches counted call by
+    call; int8 agreement with bf16 above JAX's 0.85; im2col within the
+    bf16 bound of 2 of cuDNN's conv at each of the 20 shapes; the conv
+    restored after `conv_model_ab`.
+41. attn_tools: `tools/{attn_microbench,fwd_sweep,bwd_sweep}.py` at
+    batch 8, bf16, on the committed kernels (the sweeps' `source` row,
+    through the same swap of the wrappers' entry lookup as a variant):
+    K1 for each forward call, K2 and K4 for each gradient call; finite
+    times; the lookup restored.
+42. remat: `tools/remat_ab.py` at 256 px, batch 8, in a child
+    (`--remat-ab`, so that an out-of-memory leaves no allocator state in
+    this process) started after fake_layouts and run beside 17, 18 and
+    21, its allocator held to 0.75 of the card: the interleaved cost A/B
+    and both batch walks to their first out-of-memory, each walk's
+    largest batch with its peak memory; K2 and K4 launched (K2 more: the
+    remat steps run each block again).
+43. bf16_validation (after 41): `tools/bf16_validation.py` at 1 epoch,
+    32 px: both rows with JAX's keys and finite metrics, JAX's verdict
+    printed (one epoch decides nothing; the tool's 30 epochs at 64 px run
+    alone).
+44. fraction_sweep (after data_bench, on the fake COCO layout):
+    `tools/run_fraction_sweep.py` (coco_panoptic, fractions 0.5 and 1.0,
+    1 epoch, batch 8): one row a fraction with JAX's keys, K1, K2 and K4
+    launched; `tools/plot_sweep.py` draws it or, on a host without
+    matplotlib, raises naming it.
 
 It imports torch, numpy and the port, nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
 import os
@@ -301,11 +335,15 @@ from maskunet_tpu_torch.tasks import evaluators, predict, recipes
 from maskunet_tpu_torch.tasks.datasets import make_datasets
 from maskunet_tpu_torch.tools import bf16_softmax_experiment as bf16_tool
 from maskunet_tpu_torch.tools import make_fake_dataset as fake_data
-from maskunet_tpu_torch.tools import (data_bench, fwd_breakdown,
-                                      mfu_report, parse_xplane,
-                                      profile_step, res256_bench,
-                                      serve_breakdown, softmax_ab,
-                                      tpu_kernel_paritycheck,
+from maskunet_tpu_torch.tools import (attn_microbench, bf16_validation,
+                                      bwd_sweep, conv_ab, conv_model_ab,
+                                      data_bench, fwd_breakdown, fwd_sweep,
+                                      infer_ab, lane_ab, mfu_report,
+                                      opt_ab, parse_xplane, plan_ab,
+                                      plot_sweep, profile_step, quant_ab,
+                                      remat_ab, res256_bench,
+                                      run_fraction_sweep, serve_breakdown,
+                                      softmax_ab, tpu_kernel_paritycheck,
                                       train_breakdown, training_parity,
                                       trunk_breakdown)
 from maskunet_tpu_torch.train import loop as train_loop
@@ -392,8 +430,12 @@ INT8_ARTIFACT_AGREE = 0.95
 EXPORT_IMAGES = 16
 # the flash operators' host cost on the eager serving forward: device ms
 # a batch through the operators within OP_DEVICE_RTOL of the direct
-# launches' (the same kernels; the profiler's sums vary by ~0.1%)
+# launches' (the same kernels). One sample, the profiler's kernel sum over
+# 3 forwards, ranges over 3% of the mean from run to run, so each way's
+# figure is the mean of 2 * OP_ROUNDS samples, taken in OP_ROUNDS rounds
+# of turns
 OP_DEVICE_RTOL = 0.02
+OP_ROUNDS = 3
 
 failures: list[str] = []
 
@@ -2316,13 +2358,14 @@ def wall_and_device_ms(fn) -> tuple:
                         else "not measured")
 
 
-def in_turns(fns: dict) -> dict:
-    """`wall_and_device_ms` of two forwards {name: fn} in turns a, b, b, a;
-    returns {name: {"wall_ms": [2], "device_ms": [2]}}."""
+def in_turns(fns: dict, rounds: int = 1) -> dict:
+    """`wall_and_device_ms` of two forwards {name: fn} in `rounds` rounds
+    of turns a, b, b, a; returns {name: {"wall_ms": [2 * rounds],
+    "device_ms": [2 * rounds]}}."""
     (a, fa_), (b, fb_) = fns.items()
     out = {a: {"wall_ms": [], "device_ms": []},
            b: {"wall_ms": [], "device_ms": []}}
-    for name, fn in ((a, fa_), (b, fb_), (b, fb_), (a, fa_)):
+    for name, fn in ((a, fa_), (b, fb_), (b, fb_), (a, fa_)) * rounds:
         wall, dev = wall_and_device_ms(fn)
         out[name]["wall_ms"].append(wall)
         out[name]["device_ms"].append(dev)
@@ -2339,8 +2382,9 @@ def phase_op_dispatch(card: str, runner, batch: np.ndarray) -> None:
     the same forward with K1 launched directly, as the eager wrapper does
     (unchanged by the operators), and through the operator
     `maskunet::flash_fwd_nomax`, which exported artifacts call, in turns
-    direct, operator, operator, direct: K1 6 launches a forward both ways,
-    the device ms a batch within OP_DEVICE_RTOL, the wall ms printed."""
+    direct, operator, operator, direct, OP_ROUNDS rounds: K1 6 launches a
+    forward both ways, the mean device ms a batch within OP_DEVICE_RTOL,
+    the wall ms printed."""
     direct = fk.flash_fwd_nomax
 
     def through_op(q, k, v, bias, scale, use_valid=True):
@@ -2366,7 +2410,7 @@ def phase_op_dispatch(card: str, runner, batch: np.ndarray) -> None:
         fn()
         torch.cuda.synchronize()
         launches[name] = direct.launches + through_op.launches
-    times = in_turns(fns)
+    times = in_turns(fns, OP_ROUNDS)
     dev = {k: mean_ms(v["device_ms"]) for k, v in times.items()}
     wall = {k: mean_ms(v["wall_ms"]) for k, v in times.items()}
     check(launches == {"direct": 6, "operator": 6},
@@ -2378,7 +2422,7 @@ def phase_op_dispatch(card: str, runner, batch: np.ndarray) -> None:
           f"{OP_DEVICE_RTOL} of the direct launches': {dev}")
     emit(phase="op_dispatch", card=card, batch=BATCH, launches=launches,
          device_ms_per_batch=dev, wall_ms_per_batch=wall, turns=times,
-         order="direct, operator, operator, direct")
+         order=f"direct, operator, operator, direct; {OP_ROUNDS} rounds")
 
 
 def export_images(seed: int = 20) -> np.ndarray:
@@ -2730,7 +2774,7 @@ def finish(procs: dict, timeout: float = 600) -> dict:
 
 
 def phase_cli(card: str, roots: dict, work: str,
-              matplotlib: str | None) -> None:
+              matplotlib: str | None, beside=None) -> None:
     """The command line on the card (phase 23), each command a subprocess
     of `python -m maskunet_tpu_torch.cli` on the fake layouts of
     `recipes`, in two stages of parallel processes: `recipes`, `train`
@@ -2742,7 +2786,8 @@ def phase_cli(card: str, roots: dict, work: str,
     from the trained ade_semantic state followed by `evaluate` of the
     imported workdir, equal to that of the source state. Each JSON line
     is parsed and its keys checked. `stage_seconds`: stage A, stage B's
-    parallel processes, and how long the import chain outlasted them."""
+    parallel processes, and how long the import chain outlasted them.
+    `beside()` runs in this process while stage B's processes run."""
     ade, city = roots["ade20k"], roots["cityscapes"]
     w_ade, w_city = os.path.join(work, "ade"), os.path.join(work, "city")
     common = ("--data-root", ade, "--recipe", "ade_semantic")
@@ -2817,7 +2862,7 @@ def phase_cli(card: str, roots: dict, work: str,
     t0 = time.monotonic()
     with ThreadPoolExecutor(1) as pool:
         chain = pool.submit(imported)
-        b = finish({
+        procs = {
         "evaluate": start_cli("evaluate", *common, "--workdir", w_ade,
                               "--tag", "latest", "--attn-output-layout",
                               "literal_view"),
@@ -2834,7 +2879,12 @@ def phase_cli(card: str, roots: dict, work: str,
                             "--quantize", "int8"),
         "evaluate_n1": start_cli("evaluate", *common, "--workdir", w_ade,
                                  "--tag", "latest", "--attn-output-layout",
-                                 "literal_view", "--n-data", "1")})
+                                 "literal_view", "--n-data", "1")}
+        try:
+            if beside is not None:
+                beside()
+        finally:
+            b = finish(procs)
         stage_b = time.monotonic() - t0
         c = chain.result()
     stage_c = time.monotonic() - t0 - stage_b
@@ -4409,6 +4459,290 @@ def phase_eval_scale(card: str, proc: subprocess.Popen, started: float
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phases 40-45: the last of tools/ (the same-process A/Bs, remat headroom,
+# the attention microbench and sweeps, bf16 validation, the data-fraction
+# sweep), each once at a reduced depth
+# ---------------------------------------------------------------------------
+
+AB_STEPS = 3                  # the A/B tools' timed calls a window
+AB_DEVICE_CALLS = 1           # device_ms_per_call's calls (the tools': 3)
+REMAT_ARGS = (BATCH, 1, RES256_IMG)   # remat_ab's batch, steps, img
+# phase 42's child runs beside phases 17, 18 and 21 and their children:
+# its allocator may hold this share of the card, so that its walk's
+# out-of-memory is its own
+REMAT_MEMORY_FRACTION = 0.75
+BF16_VALIDATION_ARGS = ("1", "32")    # epochs, img (the tool's: 30, 64)
+SWEEP_FRACTIONS = ("0.5", "1.0")
+SWEEP_KEYS = {"fraction", "train_loss", "train_miou", "epochs_run",
+              "stop_reasons", "loop_img_per_sec_compile_dominated",
+              "val_miou", "pq", "ap", "seeds", "lr_override",
+              "max_epochs_budget"}
+
+
+# each new tool's launches in its phase (the kernels line sums them)
+tool_launches: dict[str, dict] = {}
+
+
+def calls_of(steps: int, windows: int = 1) -> int:
+    """Calls a tool makes of one timed function: a warm-up and `steps` a
+    window, then the device-time calls."""
+    return windows * (1 + steps) + AB_DEVICE_CALLS
+
+
+def finite_ms(tree) -> bool:
+    """Every wall time ("...ms" keys but the device's) under `tree` a
+    finite float (a difference of two, like `opt_ab`'s segment, may be
+    negative: host noise). A device time may be None: `device_ms_per_call`
+    returns None where the profiler reported no kernel, and the tools
+    print "not measured" there."""
+    if isinstance(tree, dict):
+        return all(finite_ms(v) if isinstance(v, (dict, list)) else
+                   (not k.endswith("ms") or "device" in k
+                    or (isinstance(v, float) and math.isfinite(v)))
+                   for k, v in tree.items())
+    if isinstance(tree, list):
+        return all(finite_ms(v) for v in tree)
+    return True
+
+
+def printed(fn) -> tuple:
+    """(`fn()`, the lines it printed): a tool's printout goes into its
+    phase's line, so that `tools/phase_seconds.py` charges the phase."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn()
+    return res, buf.getvalue().splitlines()
+
+
+def run_tool(phase: str, card: str, name: str, fn, want: dict) -> dict:
+    """`fn()` with the launch counters zeroed before it; the launches must
+    be `want` (the kernels not named: 0) and every wall and device ms
+    finite; prints the phase's line."""
+    zero_launches()
+    t0 = time.monotonic()
+    res, lines = printed(fn)
+    launches = tool_launches[name] = kernel_launches()
+    emit(phase=phase, card=card, tool=name, lines=lines, results=res,
+         launches=launches, seconds=time.monotonic() - t0)
+    check(launches == {**dict.fromkeys(counted_wrappers(), 0), **want},
+          f"{phase} {name}: launches {launches}, want {want}")
+    check(finite_ms(res), f"{phase} {name}: every time finite")
+    return res
+
+
+def phase_ab_tools(card: str) -> dict:
+    """Phase 40: `infer_ab`, `plan_ab`, `opt_ab`, `quant_ab`, `conv_ab`,
+    `conv_model_ab --train` and `lane_ab` in this process, batch 8, 128 px,
+    windows of AB_STEPS calls, one round: each tool's launches of K1 (the
+    forwards), K2 and K4 (the steps) counted call by call, finite times;
+    `quant_ab`'s int8 arms agree with bf16 above JAX's INT8_AGREE;
+    `conv_ab`'s im2col within the bf16 kernel bound TOL of cuDNN's conv at
+    every shape; `conv_model_ab`'s conv restored."""
+    n, k, d = AB_STEPS, calls_of(AB_STEPS), AB_DEVICE_CALLS
+    fwd = {"K1": 6}
+    step = {"K2": 6, "K4": 6}
+
+    def times(want, count):
+        return {kk: v * count for kk, v in want.items()}
+
+    out = {"infer_ab": run_tool(
+        "ab_tools", card, "infer_ab",
+        lambda: infer_ab.run(BATCH, steps=n, repeats=1, device_calls=d),
+        times(fwd, 2 * k))}
+    out["plan_ab"] = run_tool(
+        "ab_tools", card, "plan_ab",
+        lambda: plan_ab.run(BATCH, n, rounds=1, device_calls=d),
+        {**times(fwd, 2 * k), **times(step, 2 * k)})
+    out["opt_ab"] = run_tool(
+        "ab_tools", card, "opt_ab",
+        lambda: opt_ab.run(BATCH, n, rounds=1, device_calls=d),
+        times(step, 3 * k))
+    # three arms, then their argmax and the static arm's calibration pass
+    quant = out["quant_ab"] = run_tool(
+        "ab_tools", card, "quant_ab",
+        lambda: quant_ab.run(BATCH, steps=n, repeats=1, device_calls=d),
+        times(fwd, 3 * k + 3 + 1))
+    check(quant["agree"] > INT8_AGREE and quant["agree_static"] > INT8_AGREE,
+          f"ab_tools quant_ab: int8 agrees with bf16 above {INT8_AGREE}: "
+          f"{quant['agree']}, {quant['agree_static']}")
+    rows = out["conv_ab"] = run_tool(
+        "ab_tools", card, "conv_ab",
+        lambda: conv_ab.run(BATCH, steps=n, repeats=1, device_calls=d),
+        {})
+    check(len(rows) == len(conv_ab.SHAPES)
+          and all(r["rel_err"] <= TOL[torch.bfloat16] for r in rows),
+          f"ab_tools conv_ab: im2col within {TOL[torch.bfloat16]} of max|y| "
+          f"at every shape: {[r['rel_err'] for r in rows]}")
+    before = layers.conv2d
+    # forward: the rel-err pair, then the two arms; the step: two arms
+    out["conv_model_ab"] = run_tool(
+        "ab_tools", card, "conv_model_ab",
+        lambda: conv_model_ab.run(BATCH, True, steps=n, rounds=1,
+                                  device_calls=d),
+        {**times(fwd, 2 + 2 * k), **times(step, 2 * k)})
+    check(layers.conv2d is before, "ab_tools conv_model_ab: conv2d restored")
+    out["lane_ab"] = run_tool("ab_tools", card, "lane_ab",
+                              lambda: lane_ab.run(iters=n, device_calls=d),
+                              {})
+    return out
+
+
+def phase_attn_tools(card: str) -> dict:
+    """Phase 41: `attn_microbench` (4 shapes), `fwd_sweep` and `bwd_sweep`
+    on the committed kernels (`source` only: a variant's nvcc build costs
+    more than the phase) at batch 8, bf16: K1 for each forward call, K2 and
+    K4 for each gradient call, counted call by call; finite times; the
+    sweeps' entry lookup restored."""
+    lookup = fk._entry
+    out = {"attn_microbench": run_tool(
+        "attn_tools", card, "attn_microbench",
+        lambda: attn_microbench.run(BATCH, fwd_steps=AB_STEPS,
+                                    grad_steps=AB_STEPS, repeats=1,
+                                    device_calls=AB_DEVICE_CALLS),
+        {"K1": 4 * calls_of(AB_STEPS), "K2": 4 * calls_of(AB_STEPS),
+         "K4": 4 * calls_of(AB_STEPS)})}
+    out["fwd_sweep"] = run_tool(
+        "attn_tools", card, "fwd_sweep",
+        lambda: fwd_sweep.run(BATCH, ("source",), steps=AB_STEPS,
+                              repeats=1, device_calls=AB_DEVICE_CALLS),
+        {"K1": calls_of(AB_STEPS)})
+    out["bwd_sweep"] = run_tool(
+        "attn_tools", card, "bwd_sweep",
+        lambda: bwd_sweep.run(BATCH, ("source",), steps=AB_STEPS,
+                              repeats=1, device_calls=AB_DEVICE_CALLS),
+        {k: 2 * calls_of(AB_STEPS) for k in ("K2", "K4")})
+    check(fk._entry is lookup, "attn_tools: the entry lookup restored")
+    return out
+
+
+def remat_child() -> int:
+    """`chip_smoke.py --remat-ab`, phase 42's child: `tools/remat_ab.run`
+    at REMAT_ARGS with the launch counters zeroed before it, its allocator
+    held to REMAT_MEMORY_FRACTION of the card; prints its result and
+    launches (a process of its own, so that the walk's out-of-memory
+    leaves no allocator state in the parent)."""
+    torch.cuda.set_per_process_memory_fraction(REMAT_MEMORY_FRACTION)
+    zero_launches()
+    res = remat_ab.run(*REMAT_ARGS, device_calls=AB_DEVICE_CALLS)
+    print(json.dumps({"result": res, "launches": kernel_launches()}),
+          flush=True)
+    return 0
+
+
+def start_remat() -> subprocess.Popen:
+    """Phase 42's child, started before phase 17 (the card's memory is
+    shared with phases 17, 18 and 21 and their children, its allocator
+    capped)."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--remat-ab"],
+        cwd=ROOT, env=subprocess_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def phase_remat(card: str, child: subprocess.Popen, started: float
+                ) -> dict:
+    """Phase 42: `tools/remat_ab` at 256 px, batch 8 (the cost A/B, then
+    the batch walk of each configuration to its first out-of-memory under
+    REMAT_MEMORY_FRACTION of the card) in a child process beside phases
+    17, 18 and 21: finite step times, K2 and K4 launched (K2 more than K4:
+    the remat step runs each block's forward again), no K1; each walk
+    found a batch that fits, with its peak memory."""
+    t0 = time.monotonic()
+    rc, out, err, _ = finish({"remat": child})["remat"]
+    row = last_json(out) or {}
+    res, launches = row.get("result", {}), row.get("launches", {})
+    tool_launches["remat_ab"] = launches
+    emit(phase="remat", card=card, rc=rc, args=REMAT_ARGS,
+         memory_fraction=REMAT_MEMORY_FRACTION, results=res,
+         launches=launches,
+         lines=[ln for ln in out.splitlines() if not ln.startswith("{")],
+         stderr=err[-2000:] if rc else "", waited_s=time.monotonic() - t0,
+         seconds=time.monotonic() - started)
+    walks = res.get("headroom", {})
+    check(rc == 0 and finite_ms(res.get("cost"))
+          and set(walks) == {"plain", "remat"}
+          and all(w["fit"] and w["fit"][1]["peak_mb"] > 0
+                  for w in walks.values()),
+          f"remat: the cost A/B and both walks ran: rc {rc} {res} "
+          f"{err[-500:]}")
+    check(launches.get("K1") == 0 and launches.get("K3") == 0
+          and launches.get("K2", 0) > launches.get("K4", 0) > 0,
+          f"remat: K2 and K4 launched, K2 again in the remat steps: "
+          f"{launches}")
+    return res
+
+
+def phase_bf16_validation(card: str) -> dict:
+    """Phase 43: `tools/bf16_validation.main` at BF16_VALIDATION_ARGS
+    (1 epoch, 32 px; the tool's 30 epochs at 64 px run standalone): both
+    rows with JAX's keys and finite metrics, K1, K2 and K4 launched, JAX's
+    verdict printed (one epoch decides nothing, so it is not held)."""
+    zero_launches()
+    t0 = time.monotonic()
+    res, lines = printed(
+        lambda: bf16_validation.main(list(BF16_VALIDATION_ARGS)))
+    launches = tool_launches["bf16_validation"] = kernel_launches()
+    keys = {"dtype", "train_loss", "miou", "pq", "pq_things", "ap",
+            "images_per_sec"}
+    emit(phase="bf16_validation", card=card, args=BF16_VALIDATION_ARGS,
+         lines=lines, results=res, launches=launches,
+         seconds=time.monotonic() - t0)
+    check(all(set(res[d]) == keys and all(
+              math.isfinite(res[d][k]) for k in keys - {"dtype"})
+              for d in ("f32", "bf16")),
+          f"bf16_validation: JAX's keys, finite metrics: {res}")
+    check(launches["K3"] == 0 and min(launches[k] for k in
+                                      ("K1", "K2", "K4")) > 0,
+          f"bf16_validation: K1, K2 and K4 launched: {launches}")
+    return res
+
+
+def phase_fraction_sweep(card: str, root: str, work: str,
+                         matplotlib: str | None) -> list:
+    """Phase 44: `tools/run_fraction_sweep` on the fake COCO layout
+    (coco_panoptic, fractions 0.5 and 1.0, 1 epoch, batch 8, one
+    validation batch): one row a fraction in sweep_results.jsonl with
+    JAX's keys; then `tools/plot_sweep` on it, which draws the PNG or,
+    where the host has no matplotlib, raises naming it."""
+    zero_launches()
+    t0 = time.monotonic()
+    rows, lines = printed(lambda: run_fraction_sweep.main([
+        "--data-root", root, "--workdir", work, "--fractions",
+        *SWEEP_FRACTIONS, "--max-epochs", "1", "--batch-size", str(BATCH),
+        "--max-eval-batches", "1", "--lr", "1e-3"]))
+    launches = tool_launches["run_fraction_sweep"] = kernel_launches()
+    path = os.path.join(work, "sweep_results.jsonl")
+    with open(path) as f:
+        written = [json.loads(line) for line in f]
+    png = os.path.join(work, "sweep.png")
+    try:
+        lines += printed(lambda: plot_sweep.main([path, png]))[1]
+        plot_error = None
+    except ModuleNotFoundError as e:
+        plot_error = str(e)
+    emit(phase="fraction_sweep", card=card, lines=lines, rows=rows,
+         launches=launches,
+         plot_error=plot_error, png=os.path.exists(png),
+         seconds=time.monotonic() - t0)
+    check(written == rows and [r["fraction"] for r in rows] == [
+              float(f) for f in SWEEP_FRACTIONS]
+          and all(set(r) == SWEEP_KEYS for r in rows),
+          f"fraction_sweep: one row a fraction with JAX's keys: {rows}")
+    check(min(launches[k] for k in ("K1", "K2", "K4")) > 0,
+          f"fraction_sweep: K1, K2 and K4 launched: {launches}")
+    check(os.path.exists(png) if matplotlib else
+          "matplotlib" in (plot_error or ""),
+          f"fraction_sweep: plot_sweep draws, or names matplotlib where "
+          f"the host has none: {plot_error}")
+    return rows
+
+
+def tools_sum(kernel: str) -> int:
+    """`kernel`'s launches over phases 40-44's tools."""
+    return sum(v.get(kernel, 0) for v in tool_launches.values())
+
+
 def kernel_entry(name, source, replaces, launches, err, t, **extra) -> dict:
     return {**extra, "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -4430,6 +4764,8 @@ def main() -> int:
         return safe_export_child(sys.argv[2])
     if sys.argv[1:2] == ["--export"]:
         return export_child(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--remat-ab"]:
+        return remat_child()
     t0 = time.monotonic()
     card = phase_device()
     libs = phase_image_io(card)
@@ -4451,6 +4787,7 @@ def main() -> int:
     instance = phase_instance_loop(card, loop)
     data_dir = tempfile.mkdtemp(prefix="chip_smoke_data_")
     int8_exports = {}
+    remat_proc = None
     try:
         t0_layouts = time.monotonic()
         roots = write_fake_layouts(data_dir)
@@ -4460,6 +4797,9 @@ def main() -> int:
                       for k, n in (("ade20k", "ade_semantic"),
                                    ("coco", "coco_panoptic"),
                                    ("cityscapes", "city_semantic"))})
+        free_card()
+        remat_started = time.monotonic()
+        remat_proc = start_remat()
         recipe_launches, pan_state = phase_recipes(card, roots)
         phase_predict(card, pan_state, roots, libs["matplotlib"])
         del pan_state
@@ -4467,16 +4807,26 @@ def main() -> int:
         os.makedirs(extras)
         int8_exports = start_int8_exports(extras)
         exported = phase_export(card, extras)
+        phase_remat(card, remat_proc, remat_started)
         int8 = phase_int8(card, int8_exports,
                           os.path.join(roots["ade20k"], "images", "training"),
                           exported.pop("live"), exported["bytes"])
+
+        def tool_phases():      # 40, 41 and 43, beside the CLI's stage B
+            phase_ab_tools(card)
+            phase_attn_tools(card)
+            phase_bf16_validation(card)
+
         phase_cli(card, roots, os.path.join(data_dir, "cli"),
-                  libs["matplotlib"])
+                  libs["matplotlib"], beside=tool_phases)
         phase_data_rate(card, os.path.join(data_dir, "ade512"))
         phase_data_bench(card, os.path.join(data_dir, "ade512"))
+        phase_fraction_sweep(card, roots["coco"],
+                             os.path.join(data_dir, "sweep"),
+                             libs["matplotlib"])
     finally:
-        for _, proc in int8_exports.values():
-            if proc.poll() is None:
+        for proc in [p for _, p in int8_exports.values()] + [remat_proc]:
+            if proc is not None and proc.poll() is None:
                 proc.kill()
                 proc.communicate()
         shutil.rmtree(data_dir, ignore_errors=True)
@@ -4539,6 +4889,7 @@ def main() -> int:
                      launches_dp_serve=dp_serve["K1"],
                      launches_tp=tp["K1"],
                      launches_res256=res256["inference"]["launches"]["K1"],
+                     launches_tool_phases=tools_sum("K1"),
                      res256_ms=r256["K1"]["ms"],
                      res256_bound_ms=r256["K1"]["bound_ms"]),
         kernel_entry("flash_fwd_nomax_lse", fwd_src,
@@ -4552,6 +4903,7 @@ def main() -> int:
                      launches_dp=dp["K2"], launches_pipeline=pipe["K2"],
                      launches_dp_serve=0, launches_tp=tp["K2"],
                      launches_res256=res256["train"]["launches"]["K2"],
+                     launches_tool_phases=tools_sum("K2"),
                      res256_ms=r256["K2"]["ms"],
                      res256_bound_ms=r256["K2"]["bound_ms"]),
         kernel_entry("flash_fwd_online", online_src,
@@ -4574,6 +4926,7 @@ def main() -> int:
                      launches_dp=dp["K4"], launches_pipeline=pipe["K4"],
                      launches_dp_serve=0, launches_tp=tp["K4"],
                      launches_res256=res256["train"]["launches"]["K4"],
+                     launches_tool_phases=tools_sum("K4"),
                      res256_ms=r256["K4"]["ms"],
                      res256_bound_ms=r256["K4"]["bound_ms"]),
         kernel_entry("old_flash_fwd", online_src, "tools/softmax_ab.py:29",

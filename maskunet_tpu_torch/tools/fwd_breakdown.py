@@ -49,6 +49,26 @@ def timeit(fn, fence, *, steps: int = 30, repeats: int = 3) -> float:
     return best
 
 
+def interleaved(calls: dict, fence, steps: int, rounds: int = 2,
+                device_calls: int = 3) -> dict:
+    """Same-process A/B: `rounds` rounds, each one `timeit` window of
+    `steps` calls of every call of `calls` in turn; then the card's kernel
+    time a call of each. Returns {name: {"ms": the mean over the rounds,
+    "best_ms": their least, "rounds": seconds a call in each round,
+    "device_ms"}}."""
+    from maskunet_tpu_torch.utils.profiling import device_ms_per_call
+
+    times = {name: [] for name in calls}
+    for _ in range(rounds):
+        for name, fn in calls.items():
+            times[name].append(timeit(fn, fence, steps=steps, repeats=1))
+    return {name: {"ms": sum(t) / len(t) * 1e3, "best_ms": min(t) * 1e3,
+                   "rounds": t,
+                   "device_ms": device_ms_per_call(calls[name],
+                                                   calls=device_calls)}
+            for name, t in times.items()}
+
+
 def fence_tensor(out) -> None:
     """A one-element fetch from `out`: waits for the work that made it."""
     float(out.reshape(-1)[0])
@@ -96,9 +116,21 @@ def device_suffix(device_ms) -> str:
             else f"  device {device_ms:7.3f} ms")
 
 
-def inference_setup(batch: int, img_size: int, dev):
-    """The JAX tool's inference model on `dev`: (cfg, folded bf16 params,
-    input, masks, plans)."""
+def init_model(cfg, dev):
+    """The JAX tools' model: weights from seed 0 on `dev`, (params,
+    BatchNorm state)."""
+    import torch
+
+    from maskunet_tpu_torch.models import maskattn_unet as mu
+
+    params, mstate = mu.init(torch.Generator().manual_seed(0), cfg)
+    return ({k: v.to(dev) for k, v in params.items()},
+            {k: v.to(dev) for k, v in mstate.items()})
+
+
+def inference_setup(batch: int, img_size: int, dev, *, cast: bool = True):
+    """The JAX tool's inference model on `dev`: (cfg, folded params (bf16
+    cast unless `cast` is False), input, masks, plans)."""
     import numpy as np
     import torch
 
@@ -106,29 +138,31 @@ def inference_setup(batch: int, img_size: int, dev):
 
     cfg = mu.MaskAttnUNetConfig(c_out=150, img_size=img_size,
                                 compute_dtype="bfloat16")
-    params, mstate = mu.init(torch.Generator().manual_seed(0), cfg)
+    params, mstate = init_model(cfg, dev)
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal(
         (batch, img_size, img_size, 3)).astype(np.float32)).to(dev)
     masks = tuple(m.to(dev) for m in mu.make_attention_masks(
         torch.Generator().manual_seed(1), batch, img_size))
     with torch.no_grad():
-        p_fold = mu.cast_params_for_inference(mu.fold_bn_for_inference(
-            {k: v.to(dev) for k, v in params.items()},
-            {k: v.to(dev) for k, v in mstate.items()}, cfg))
+        p_fold = mu.fold_bn_for_inference(params, mstate, cfg)
+        if cast:
+            p_fold = mu.cast_params_for_inference(p_fold)
     return cfg, p_fold, x, masks, mu.precompute_mask_plans(masks)
 
 
-def make_forward(cfg, p_fold, x, masks, plans):
-    """The folded eval forward's semantic logits, as a call."""
+def make_forward(cfg, p_fold, x, masks, plans, state=None):
+    """The folded eval forward's semantic logits, as a call; with the
+    BatchNorm `state`, the eval forward of unfolded params."""
     import torch
 
     from maskunet_tpu_torch.models import maskattn_unet as mu
 
     def fwd():
         with torch.no_grad():
-            out, _ = mu.apply(p_fold, None, x, cfg=cfg, masks=masks,
-                              train=False, folded=True, mask_plans=plans)
+            out, _ = mu.apply(p_fold, state, x, cfg=cfg, masks=masks,
+                              train=False, folded=state is None,
+                              mask_plans=plans)
         return out.semantic
 
     return fwd

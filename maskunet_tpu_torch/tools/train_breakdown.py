@@ -88,12 +88,17 @@ def mode_patches(mode: str) -> list:
     return out
 
 
-def timed_step(mode: str, batch: int, *, steps: int = 15, repeats: int = 3,
-               device_calls: int = 3, img_size: int = 128,
-               device: str = "cuda") -> dict:
-    """One mode: a fresh state, its patches, one warm step, the timed
-    windows and the device time; returns the wall and device ms a step and
-    the last loss."""
+def make_step_call(mode: str, batch: int, *, img_size: int = 128,
+                   device: str = "cuda", tx=None, mask_plans: bool = False,
+                   remat: bool = False, dtype: str = "bfloat16",
+                   seed: int = 0):
+    """The JAX tools' train step as a call that returns the loss: the ADE
+    model at `img_size` in `dtype` from `seed` (weights `seed`, masks
+    `seed` + 1, the state's generator `seed` + 2), one random batch, `tx`
+    (default: SGD 5e-5 in mode 'sgd', else AdamW 5e-5 / 0.1), the masks
+    in the state and planned in each step unless `mask_plans` (then
+    planned once, `precompute_mask_plans`), `remat_attention` if `remat`,
+    dropout 0 in mode 'nodrop'. Call it inside `mode_patches(mode)`."""
     import numpy as np
     import torch
 
@@ -102,34 +107,48 @@ def timed_step(mode: str, batch: int, *, steps: int = 15, repeats: int = 3,
     from maskunet_tpu_torch.models import maskattn_unet as mu
     from maskunet_tpu_torch.train import loop as loop_lib
     from maskunet_tpu_torch.train import step as step_lib
-    from maskunet_tpu_torch.utils.profiling import device_ms_per_call
 
     dev = resolve_device(device)
-    cfg = mu.MaskAttnUNetConfig(c_out=150, img_size=img_size,
-                                compute_dtype="bfloat16")
+    cfg = mu.MaskAttnUNetConfig(
+        c_out=150, img_size=img_size, compute_dtype=dtype,
+        remat_attention=remat,
+        dropout_rate=0.0 if mode == "nodrop" else 0.3)
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal(
         (batch, img_size, img_size, 3)).astype(np.float32)).to(dev)
     labels = torch.from_numpy(
         rng.integers(0, 150, (batch, img_size, img_size))).to(dev)
     batch_data = {"image": x, "label": labels}
-    tx = SGD(5e-5) if mode == "sgd" else loop_lib.AdamW(5e-5, 1e-1)
+    if tx is None:
+        tx = SGD(5e-5) if mode == "sgd" else loop_lib.AdamW(5e-5, 1e-1)
+    params, mstate = mu.init(torch.Generator().manual_seed(seed), cfg)
+    masks = tuple(m.to(dev) for m in mu.make_attention_masks(
+        torch.Generator().manual_seed(seed + 1), batch, img_size))
+    ts = state_lib.create(torch.Generator(device=dev).manual_seed(seed + 2),
+                          {k: v.to(dev) for k, v in params.items()},
+                          {k: v.to(dev) for k, v in mstate.items()},
+                          tx, masks=masks)
+    train_step = step_lib.make_train_step(
+        cfg, step_lib.TaskConfig(),
+        mask_plans=mu.precompute_mask_plans(masks) if mask_plans else None,
+        device=dev)
+
+    def step():
+        return train_step(ts, batch_data)[1]["loss"]
+
+    return step
+
+
+def timed_step(mode: str, batch: int, *, steps: int = 15, repeats: int = 3,
+               device_calls: int = 3, img_size: int = 128,
+               device: str = "cuda") -> dict:
+    """One mode: a fresh state, its patches, one warm step, the timed
+    windows and the device time; returns the wall and device ms a step and
+    the last loss."""
+    from maskunet_tpu_torch.utils.profiling import device_ms_per_call
+
     with patched(*mode_patches(mode)):
-        params, mstate = mu.init(torch.Generator().manual_seed(0), cfg)
-        masks = tuple(m.to(dev) for m in mu.make_attention_masks(
-            torch.Generator().manual_seed(1), batch, img_size))
-        ts = state_lib.create(torch.Generator(device=dev).manual_seed(2),
-                              {k: v.to(dev) for k, v in params.items()},
-                              {k: v.to(dev) for k, v in mstate.items()},
-                              tx, masks=masks)
-        cfg2 = dataclasses.replace(
-            cfg, dropout_rate=0.0 if mode == "nodrop" else cfg.dropout_rate)
-        train_step = step_lib.make_train_step(cfg2, step_lib.TaskConfig(),
-                                              device=dev)
-
-        def step():
-            return train_step(ts, batch_data)[1]["loss"]
-
+        step = make_step_call(mode, batch, img_size=img_size, device=device)
         sec = timeit(step, float, steps=steps, repeats=repeats)
         dev_ms = device_ms_per_call(step, calls=device_calls)
         loss = float(step())
