@@ -26,6 +26,8 @@ from typing import Iterator, Protocol
 import numpy as np
 import torch
 
+from maskunet_tpu_torch.utils.profiling import span
+
 
 class Dataset(Protocol):
     def __len__(self) -> int: ...
@@ -124,7 +126,8 @@ class Prefetcher:
     batch's copies before queueing it (the pinned host buffers live until
     then). The consumer records every tensor it takes on its current
     stream, so the allocator does not hand the prefetch stream that memory
-    again while the consumer's kernels still read it.
+    again while the consumer's kernels still read it. The consumer's wait
+    on the queue is the span `feed.wait` (`utils.profiling.span`).
 
     Use as a context manager (or call `close()`): a consumer that stops
     early (break / max_batches) would otherwise leave the worker blocked
@@ -197,7 +200,8 @@ class Prefetcher:
     def __next__(self):
         if self._stop.is_set():
             raise StopIteration
-        item = self._q.get()
+        with span("feed.wait"):
+            item = self._q.get()
         if item is None:
             raise StopIteration
         if isinstance(item, BaseException):

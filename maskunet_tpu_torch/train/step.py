@@ -63,6 +63,7 @@ from maskunet_tpu_torch.losses.cross_entropy import cross_entropy
 from maskunet_tpu_torch.models import maskattn_unet as model
 from maskunet_tpu_torch.ops import metrics_ops
 from maskunet_tpu_torch.parallel import mesh as mesh_lib
+from maskunet_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,46 +151,53 @@ def make_grads_and_metrics(cfg: model.MaskAttnUNetConfig, task: TaskConfig,
 
     def grads_and_metrics(params, mstate, batch, masks, plans, generator,
                           triplets=None):
-        n = batch["image"].shape[0]
-        rows = mesh_lib.local_rows(data, n, n_micro)
-        local = {k: v[rows] for k, v in batch.items()}
-        if pipe_mesh is not None:
-            from maskunet_tpu_torch.parallel import pipeline as pipeline_lib
-            out_m, new_mstate = pipeline_lib.pipeline_apply(
-                params, mstate,
-                pipeline_lib.split_microbatches(local["image"], n_micro),
-                cfg=cfg, mesh=pipe_mesh, masks=masks, train=True,
-                dropout_generator=generator, mask_plans=plans)
-            # [M, mb, ...] -> [M*mb, ...]: the rows of `local`, in order
-            out = model.ModelOutput(*(
-                None if a is None else a.reshape((-1,) + a.shape[2:])
-                for a in out_m))
-        else:
-            dropout_masks = None
-            if group is not None:      # drawn for the global batch
-                dropout_masks = model.draw_dropout_masks(generator, cfg, n)
-                if dropout_masks is not None:
-                    dropout_masks = tuple(m[rows] for m in dropout_masks)
-            lmasks, lplans = mesh_lib.shard_masks(data, masks, plans)
-            out, new_mstate = model.apply(
-                params, mstate, local["image"], cfg=cfg, masks=lmasks,
-                train=True, dropout_generator=generator, mask_plans=lplans,
-                mesh=data, dropout_masks=dropout_masks)
-        if triplets is None and group is not None and \
-                _uses_triplets(task, batch):   # drawn for the global batch
-            triplets = triplet_lib.sample_triplets(
-                generator, batch["instance"],
-                num_samples=task.triplet_samples,
-                ignore_label=task.triplet_ignore_label)
-        if triplets is not None:
-            triplets = [torch.as_tensor(t)[rows] for t in triplets]
-        loss, metrics = _compute_loss(out, local, task, generator, triplets,
-                                      group)
-        keys = list(params)
-        grads = torch.autograd.grad(loss, [params[k] for k in keys],
-                                    allow_unused=True)
-        grads = {k: torch.zeros_like(params[k]) if g is None else g
-                 for k, g in zip(keys, grads)}
+        with span("train.forward"):
+            n = batch["image"].shape[0]
+            rows = mesh_lib.local_rows(data, n, n_micro)
+            local = {k: v[rows] for k, v in batch.items()}
+            if pipe_mesh is not None:
+                from maskunet_tpu_torch.parallel import \
+                    pipeline as pipeline_lib
+                out_m, new_mstate = pipeline_lib.pipeline_apply(
+                    params, mstate,
+                    pipeline_lib.split_microbatches(local["image"],
+                                                    n_micro),
+                    cfg=cfg, mesh=pipe_mesh, masks=masks, train=True,
+                    dropout_generator=generator, mask_plans=plans)
+                # [M, mb, ...] -> [M*mb, ...]: `local`'s rows, in order
+                out = model.ModelOutput(*(
+                    None if a is None else a.reshape((-1,) + a.shape[2:])
+                    for a in out_m))
+            else:
+                dropout_masks = None
+                if group is not None:      # drawn for the global batch
+                    dropout_masks = model.draw_dropout_masks(generator,
+                                                             cfg, n)
+                    if dropout_masks is not None:
+                        dropout_masks = tuple(m[rows]
+                                              for m in dropout_masks)
+                lmasks, lplans = mesh_lib.shard_masks(data, masks, plans)
+                out, new_mstate = model.apply(
+                    params, mstate, local["image"], cfg=cfg, masks=lmasks,
+                    train=True, dropout_generator=generator,
+                    mask_plans=lplans, mesh=data,
+                    dropout_masks=dropout_masks)
+            if triplets is None and group is not None and \
+                    _uses_triplets(task, batch):   # drawn for the global batch
+                triplets = triplet_lib.sample_triplets(
+                    generator, batch["instance"],
+                    num_samples=task.triplet_samples,
+                    ignore_label=task.triplet_ignore_label)
+            if triplets is not None:
+                triplets = [torch.as_tensor(t)[rows] for t in triplets]
+            loss, metrics = _compute_loss(out, local, task, generator,
+                                          triplets, group)
+        with span("train.backward"):
+            keys = list(params)
+            grads = torch.autograd.grad(loss, [params[k] for k in keys],
+                                        allow_unused=True)
+            grads = {k: torch.zeros_like(params[k]) if g is None else g
+                     for k, g in zip(keys, grads)}
         metrics = _global({k: v.detach() for k, v in metrics.items()}, group)
         metrics["miou"] = metrics_ops.mean_iou(out.semantic.detach(),
                                                local["label"], cfg.c_out,
@@ -258,7 +266,14 @@ def make_train_step(cfg: model.MaskAttnUNetConfig, task: TaskConfig,
     pipe mesh, and `mesh` must then be None, as JAX refuses both.
     `grad_accum` composes as an outer loop: each accumulation chunk runs
     one pipeline flush of `pipe_microbatches` microbatches, and `ts.masks`
-    are sized for one of those."""
+    are sized for one of those.
+
+    Spans (`utils.profiling.span`): `train.step` around the whole call;
+    inside it, a microbatch at a time, `train.forward` (the rows, the
+    forward, the triplet draw and the loss) and `train.backward` (the
+    gradients), then `train.optimizer` (AdamW and the schedule). The
+    rest is the step's self time: the batch move, the masks, the mIoU,
+    the all-reduces and the metrics."""
     if pipe_mesh is not None:
         from maskunet_tpu_torch.parallel import pipeline as pipeline_lib
         pipeline_lib.validate_pipe_mesh(pipe_mesh)
@@ -280,8 +295,8 @@ def make_train_step(cfg: model.MaskAttnUNetConfig, task: TaskConfig,
         cfg, task, mesh=mesh, pipe_mesh=pipe_mesh,
         pipe_microbatches=pipe_microbatches)
 
-    def step(ts: TrainState, batch: dict, triplets: tuple | None = None
-             ) -> tuple[TrainState, dict]:
+    def _step(ts: TrainState, batch: dict, triplets: tuple | None
+              ) -> tuple[TrainState, dict]:
         batch = _to_device(batch, dev)
         micro = batch["image"].shape[0] // (grad_accum * pipe_microbatches)
         if task.mask_policy == "fresh" or ts.masks is None:
@@ -307,16 +322,22 @@ def make_train_step(cfg: model.MaskAttnUNetConfig, task: TaskConfig,
         grads = _all_reduce_grads(grads, group, mesh)
         metrics = {k: torch.stack([m[k] for m in per_micro]).mean()
                    for k in per_micro[0]}
-        for k, p in ts.params.items():
-            p.grad = grads[k]
-        ts.optimizer.step()
-        ts.optimizer.zero_grad(set_to_none=True)
-        if ts.scheduler is not None:
-            ts.scheduler.step()        # the lr of the next update
+        with span("train.optimizer"):
+            for k, p in ts.params.items():
+                p.grad = grads[k]
+            ts.optimizer.step()
+            ts.optimizer.zero_grad(set_to_none=True)
+            if ts.scheduler is not None:
+                ts.scheduler.step()        # the lr of the next update
         ts.step += 1
         ts.model_state = mstate
         ts.masks = masks
         return ts, metrics
+
+    def step(ts: TrainState, batch: dict, triplets: tuple | None = None
+             ) -> tuple[TrainState, dict]:
+        with span("train.step"):
+            return _step(ts, batch, triplets)
 
     return step
 

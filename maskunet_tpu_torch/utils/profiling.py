@@ -12,6 +12,14 @@ Counterpart of maskunet_tpu/utils/profiling.py:
   Python cannot interrupt (this package's own copy of the JAX one).
 - `device_ms_per_call(fn)`: the card's kernel time a call, by the
   profiler (the tools' device times).
+- `span(name)`: a named stretch of the program's host work. Every span
+  adds to its name's totals (`span_totals`); while a profiler runs it
+  also opens `torch.profiler.record_function(name)`, so it shows in the
+  trace, and lands in an in-memory timeline (`span_timeline`) stamped on
+  the wall clock, which `trace_us` puts on the Chrome trace's clock.
+  The training step opens `train.step`, `train.forward`,
+  `train.backward` and `train.optimizer` (`train/step.py`), the
+  prefetcher `feed.wait` (`data/pipeline.py`).
 """
 
 from __future__ import annotations
@@ -21,9 +29,10 @@ import os
 import sys
 import threading
 import time
-from typing import Callable, Iterator
+from typing import Callable, Iterator, NamedTuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 @contextlib.contextmanager
@@ -162,3 +171,133 @@ def device_ms_per_call(fn: Callable[[], object], calls: int = 3
              if e.device_type == DeviceType.CUDA
              and e.self_device_time_total > 0 and not e.is_user_annotation)
     return us / calls / 1e3 if us else None
+
+
+# Kineto rounds a trace's base time (`baseTimeNanoseconds` of the Chrome
+# export) down to a multiple of this many seconds, and writes every `ts`
+# in us after it.
+_TRACE_BASE_S = 7889238
+_TIMELINE_CAP = 100_000
+
+
+class SpanTotal(NamedTuple):
+    count: int
+    total_ns: int
+    first_ns: int
+
+
+class SpanRecord(NamedTuple):
+    name: str
+    parent: str | None      # the span open around it on its thread
+    tid: int                # native thread id, as the Chrome trace's
+    start_ns: int           # time.time_ns()
+    end_ns: int
+
+
+class _SpanLog:
+    """The process's spans: totals of those closed with no profiler
+    active, and the timeline of those opened under one (at most
+    `cap` records; the rest are counted in `dropped`)."""
+
+    def __init__(self):
+        self.cap = _TIMELINE_CAP
+        self.lock = threading.Lock()
+        self.local = threading.local()
+        self.totals: dict[str, list[int]] = {}   # count, total, first
+        self.timeline: list[SpanRecord] = []
+        self.dropped = 0
+
+    def stack(self) -> list[str]:
+        stack = getattr(self.local, "stack", None)
+        if stack is None:
+            stack = self.local.stack = []
+        return stack
+
+    def add(self, name: str, ns: int) -> None:
+        with self.lock:
+            t = self.totals.get(name)
+            if t is None:
+                self.totals[name] = [1, ns, ns]
+            else:
+                t[0] += 1
+                t[1] += ns
+
+    def record(self, rec: SpanRecord) -> None:
+        with self.lock:
+            if len(self.timeline) < self.cap:
+                self.timeline.append(rec)
+            else:
+                self.dropped += 1
+
+
+_SPANS = _SpanLog()
+
+
+class span:
+    """`with span(name):` times a stretch of host work (the module
+    docstring). With no profiler active it costs a flag check, two
+    `perf_counter_ns` reads and a dict update."""
+
+    __slots__ = ("name", "_t0", "_wall0", "_parent", "_fn")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "span":
+        self._fn = None
+        if _autograd_profiler._is_profiler_enabled:
+            stack = _SPANS.stack()
+            self._parent = stack[-1] if stack else None
+            stack.append(self.name)
+            self._fn = torch.profiler.record_function(self.name)
+            self._fn.__enter__()
+            # the stamps lie just inside the profiler's own event
+            self._wall0 = time.time_ns()
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        ns = time.perf_counter_ns() - self._t0
+        if self._fn is None:
+            if not _autograd_profiler._is_profiler_enabled:
+                _SPANS.add(self.name, ns)
+            return
+        wall1 = time.time_ns()
+        self._fn.__exit__(*exc)
+        _SPANS.stack().pop()
+        _SPANS.record(SpanRecord(self.name, self._parent,
+                                 threading.get_native_id(), self._wall0,
+                                 wall1))
+
+
+def span_totals() -> dict[str, SpanTotal]:
+    """Per name: spans closed with no profiler active, their summed ns
+    and the first one's ns (`perf_counter_ns`)."""
+    with _SPANS.lock:
+        return {k: SpanTotal(*v) for k, v in _SPANS.totals.items()}
+
+
+def span_timeline() -> tuple[list[SpanRecord], int]:
+    """The spans opened under a profiler, in the order they closed, and
+    how many more the cap left out."""
+    with _SPANS.lock:
+        return list(_SPANS.timeline), _SPANS.dropped
+
+
+def reset_spans() -> None:
+    with _SPANS.lock:
+        _SPANS.totals.clear()
+        _SPANS.timeline.clear()
+        _SPANS.dropped = 0
+
+
+def trace_base_ns(ns: int) -> int:
+    """The `baseTimeNanoseconds` of a Chrome trace exported by
+    `torch.profiler` around the wall-clock stamp `ns`."""
+    step = _TRACE_BASE_S * 1_000_000_000
+    return ns // step * step
+
+
+def trace_us(ns: int) -> float:
+    """A `time.time_ns()` stamp as a Chrome trace `ts` (us)."""
+    return (ns - trace_base_ns(ns)) / 1e3
