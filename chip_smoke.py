@@ -14,8 +14,9 @@ final result):
    versions, the build of the kernel libraries from
    maskunet_tpu_torch/csrc (seconds, ptxas registers and spills; those of
    K4's, K1/K2/K6's and K3/K5/K7's wgmma instantiations named, and 0 spill
-   bytes required: phases device_k4, device_k1 and device_k3), and the
-   body K4, K1/K2 and K3 run in bf16 at each C (wgmma or mma_sync).
+   bytes required: phases device_k4, device_k1 and device_k3; the
+   BatchNorm library with none either), and the body K4, K1/K2 and K3
+   run in bf16 at each C (wgmma or mma_sync).
 2. kernel: K1 `flash_fwd_nomax` against its plain PyTorch version at the
    six serving attention shapes (batch 8, 128x128 images) in bf16 and f32,
    plus a ragged shape, a fully-masked row (must give 0) and a NaN-poisoned
@@ -42,9 +43,12 @@ final result):
 6. train: the ADE training step (c_out 150, 128x128, batch 8, bf16, recipe
    seed 42, AdamW lr 5e-5 and weight decay 0.1, the recipe's cached masks
    with precomputed plans) on a fixed synthetic batch: one step launches
-   K2 and K4 6 times each and K1 never, one eval step launches K1 6 times,
-   the gradients through the kernels agree with those through their plain
-   versions (f32: cosine >= 0.99 per tensor; bf16: the loss within 1%, and
+   K2 and K4 6 times each and K1 never, and runs its 39 train BatchNorms
+   on the kernel pair (3 launches a call each way, none on the plain
+   ops); one eval step launches K1 6 times and no BatchNorm kernel; the
+   gradients through the kernels agree with those through their plain
+   versions (the attention kernels' and the train BatchNorm's plain ops;
+   f32: cosine >= 0.99 per tensor; bf16: the loss within 1%, and
    every tensor as close to the f32 gradient as the plain path's), and 10
    steps keep the loss finite and lower it.
 7. train times: ms per step and img/s, a device profile of 3 steps, and per
@@ -81,8 +85,9 @@ final result):
     bf16) over the seeded synthetic dataset at that size (64 training and
     16 validation examples): `train` for 2 epochs with validation every
     epoch (2 batches) and a checkpoint every 4 steps, counters zeroed just
-    before: 16 steps launch K2 and K4 6 times each, each validation batch
-    K1 6 times, no other kernel; a finite history at steps 8 and 16; best
+    before: 16 steps launch K2 and K4 6 times each and run 16 x 39 train
+    BatchNorms on the kernel pair, each validation batch K1 6 times, no
+    other kernel; a finite history at steps 8 and 16; best
     and latest checkpoints. Then the latest checkpoint restores the
     returned state bit for bit, `train(resume=True, max_epochs=3)` runs
     the third epoch only (step 16 to 24), and `build_model_runner` on the
@@ -297,6 +302,20 @@ final result):
     launched; `tools/plot_sweep.py` draws it or, on a host without
     matplotlib, raises naming it.
 
+45. batchnorm (after train_time): the train-mode BatchNorm kernel pair
+    (`ops/batchnorm_kernels.py`) at every BatchNorm of each benchmark
+    cell (ADE 256 px x 8: 39 calls; city 128 px x 32: 41; 524,288 pixels
+    a batch each), bf16: a forward and a backward through the kernels
+    against the plain ops (forward and autograd's backward) within the
+    kernel bounds of 2, and each one's device ms against its bound by
+    the function's bytes (10 an element: read x, write y; read x and dy,
+    write dx), by the two-pass design's (16: x and dy read twice; a
+    re-read may hit the 50 MB L2) and `F.batch_norm`'s (timed only: its
+    variance is computed another way); the cell's sums. Then one train
+    forward and backward of each cell's model at its size, counters
+    zeroed just before: `batchnorm_train.fused` counts 39 and 41,
+    `plain_cuda` 0, the wrappers 3 launches a call each way.
+
 It imports torch, numpy and the port, nothing of JAX.
 """
 
@@ -329,6 +348,7 @@ from maskunet_tpu_torch.data import ade20k, image_check, resize
 from maskunet_tpu_torch.evaluation import clustering
 from maskunet_tpu_torch.losses import triplet as triplet_lib
 from maskunet_tpu_torch.models import maskattn_unet as mu
+from maskunet_tpu_torch.ops import batchnorm_kernels as bk
 from maskunet_tpu_torch.ops import flash_attention as fa
 from maskunet_tpu_torch.ops import flash_kernels as fk
 from maskunet_tpu_torch.tasks import evaluators, predict, recipes
@@ -561,6 +581,11 @@ def phase_device() -> str:
              name for name, info in builds.items()
              if any("spill" in ln and "0 bytes spill stores, 0 bytes spill "
                     "loads" not in ln for ln in info["log"].splitlines())])
+    bn_log = builds["batchnorm_train"]["log"].splitlines()
+    check(any("bn_stats_reduce_kernel" in ln for ln in bn_log)
+          and all("0 bytes spill stores, 0 bytes spill loads" in ln
+                  for ln in bn_log if "spill" in ln),
+          "the BatchNorm kernels built without spills")
     # K4: use_valid x clamp a C; K1/K2: use_valid a C, and K6 D and E at
     # C 64; K3: use_valid a C, and K5 and K7 at C 64
     phase_device_wgmma("device_k4", "K4", builds["flash_bwd"]["log"],
@@ -1050,8 +1075,9 @@ def exact_zero_grad(name: str) -> bool:
             or (name.startswith("upsample") and ".1.conv_block.4." in name))
 
 
-def counted_wrappers() -> dict:
-    """Every kernel's wrapper, the holder of its launch counter."""
+def attention_wrappers() -> dict:
+    """Every attention kernel's wrapper, the holder of its launch
+    counter."""
     return {"K1": fk.flash_fwd_nomax, "K2": fk.flash_fwd_nomax_lse,
             "K3": fk.flash_fwd_online, "K4": fk.flash_bwd,
             "K5": softmax_ab.old_flash_fwd, "K6": softmax_ab.nomax65_fwd,
@@ -1059,33 +1085,63 @@ def counted_wrappers() -> dict:
             "K7": bf16_tool.flash_fwd_bf16}
 
 
+def counted_wrappers() -> dict:
+    """Every kernel's wrapper: the attention kernels' and the train
+    BatchNorm pair's (read by `bn_launches`)."""
+    return {**attention_wrappers(), "BN_forward": bk.bn_train_forward,
+            "BN_backward": bk.bn_train_backward}
+
+
 def kernel_launches() -> dict:
-    return {k: fn.launches for k, fn in counted_wrappers().items()}
+    """The attention kernels' launches since `zero_launches`."""
+    return {k: fn.launches for k, fn in attention_wrappers().items()}
+
+
+def bn_launches() -> dict:
+    """The train BatchNorm pair's launches since `zero_launches`, and the
+    `batchnorm_train` calls that ran it (`fused`) or, cross-replica on the
+    card, the plain ops (`plain_cuda`)."""
+    return {"forward": bk.bn_train_forward.launches,
+            "backward": bk.bn_train_backward.launches,
+            "fused": layers.batchnorm_train.fused,
+            "plain_cuda": layers.batchnorm_train.plain_cuda}
+
+
+def want_bn(calls: int) -> dict:
+    """`bn_launches` after `calls` train BatchNorms, forward and backward,
+    on the pair: three launches a call each way."""
+    return {"forward": 3 * calls, "backward": 3 * calls, "fused": calls,
+            "plain_cuda": 0}
 
 
 def zero_launches() -> None:
     for fn in counted_wrappers().values():
         fn.launches = 0
+    layers.batchnorm_train.fused = layers.batchnorm_train.plain_cuda = 0
 
 
 def step_grads(model_cfg, task, ts, batch, plans, gen_state, plain: bool,
                triplets=None) -> tuple[dict, float]:
     """One step's gradients (f64, flattened, the exact-zero tensors left
-    out) and loss, through the kernels or (`plain`) their plain versions,
-    from the generator state `gen_state` (the same dropout draws)."""
+    out) and loss, through the kernels or (`plain`) their plain versions
+    (the attention kernels' and the train BatchNorm's plain ops), from the
+    generator state `gen_state` (the same dropout draws)."""
     ts.generator.set_state(gen_state)
     fn = train_step.make_grads_and_metrics(model_cfg, task)
-    kernels = (fk.flash_fwd_nomax_lse, fk.flash_fwd_online, fk.flash_bwd)
+    kernels = (fk.flash_fwd_nomax_lse, fk.flash_fwd_online, fk.flash_bwd,
+               layers.batchnorm_train)
     if plain:
         fk.flash_fwd_nomax_lse = functools.partial(
             fk.flash_fwd_nomax_reference, with_lse=True)
         fk.flash_fwd_online = fk.flash_fwd_online_reference
         fk.flash_bwd = fk.flash_bwd_reference
+        layers.batchnorm_train = layers.batchnorm_train_plain
     try:
         g, m, _ = fn(ts.params, ts.model_state, batch, ts.masks, plans,
                      ts.generator, triplets)
     finally:
-        fk.flash_fwd_nomax_lse, fk.flash_fwd_online, fk.flash_bwd = kernels
+        (fk.flash_fwd_nomax_lse, fk.flash_fwd_online, fk.flash_bwd,
+         layers.batchnorm_train) = kernels
     return ({k: v.double().flatten() for k, v in g.items()
              if not exact_zero_grad(k)}, float(m["loss"]))
 
@@ -1135,20 +1191,26 @@ def phase_train(card: str, safe: bool = False) -> dict:
         ts, metrics = step(ts, batch)
         torch.cuda.synchronize()
         step_launches = kernel_launches()
+        step_bn = bn_launches()
     finally:
         fk.flash_bwd = bwd_kernel
-    want = dict.fromkeys(counted_wrappers(), 0)
+    want = dict.fromkeys(attention_wrappers(), 0)
     check(step_launches == {**want, fwd: 6, "K4": 6}
           and clamps == [not safe] * 6,
           f"one {prefix}train step launches {fwd} 6, K4 6 (clamp "
           f"{not safe}), no other kernel: {step_launches}, clamps {clamps}")
+    check(step_bn == want_bn(bn_calls("ade_semantic")),
+          f"one {prefix}train step runs its 39 train BatchNorms on the "
+          f"kernel pair, none on the plain ops: {step_bn}")
     zero_launches()
     result = eval_step(ts, batch, plans)
     torch.cuda.synchronize()
     eval_launches = kernel_launches()
-    check(eval_launches == {**want, "K3" if safe else "K1": 6},
-          f"one {prefix}eval step launches {'K3' if safe else 'K1'} 6: "
-          f"{eval_launches}")
+    eval_bn = bn_launches()
+    check(eval_launches == {**want, "K3" if safe else "K1": 6}
+          and eval_bn == want_bn(0),
+          f"one {prefix}eval step launches {'K3' if safe else 'K1'} 6 and "
+          f"no BatchNorm kernel: {eval_launches}, {eval_bn}")
     check(list(result["pred"].shape) == [BATCH, IMG, IMG]
           and bool(torch.isfinite(result["metrics"]["loss"])),
           f"{prefix}eval step: finite loss, [8,128,128] predictions")
@@ -1204,13 +1266,14 @@ def phase_train(card: str, safe: bool = False) -> dict:
         losses.append(float(metrics["loss"]))
     emit(phase=f"{prefix}train", card=card, setup_s=setup_s, batch=BATCH,
          step_launches=step_launches, step_bwd_clamps=clamps,
-         eval_launches=eval_launches, losses=losses,
+         step_bn_launches=step_bn, eval_launches=eval_launches,
+         eval_bn_launches=eval_bn, losses=losses,
          miou_last=float(metrics["miou"]),
          eval_metrics={k: float(v) for k, v in result["metrics"].items()})
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"{prefix}{TRAIN_STEPS} steps: finite loss that falls")
     return {"ts": ts, "step": step, "batch": batch,
-            "launches": step_launches}
+            "launches": step_launches, "bn_launches": step_bn}
 
 
 def train_wall_and_profile(card: str, train: dict, prefix: str,
@@ -1326,6 +1389,118 @@ def phase_train_time(card: str, train: dict) -> dict:
     return totals
 
 
+# Train-mode BatchNorm: each benchmark cell's (image side, batch, heads)
+# and its calls as (side divisor, channels, calls) over its 524,288-pixel
+# batch
+BN_CELLS = {
+    "ade_semantic": ((256, 8, {"c_out": 150}),
+                     ((1, 64, 5), (1, 128, 2), (1, 150, 1), (2, 64, 4),
+                      (2, 128, 4), (2, 256, 2), (4, 128, 4), (4, 256, 4),
+                      (4, 512, 2), (8, 256, 7), (8, 512, 4))),
+    "city_instance": ((128, 32, {"c_out": 19, "embed_dim": 16,
+                                 "with_boundary_head": True}),
+                      ((1, 16, 1), (1, 19, 1), (1, 32, 1), (1, 64, 5),
+                       (1, 128, 2), (2, 64, 4), (2, 128, 4), (2, 256, 2),
+                       (4, 128, 4), (4, 256, 4), (4, 512, 2), (8, 256, 7),
+                       (8, 512, 4))),
+}
+# bf16 bytes an element: what the function must move (read x, write y;
+# read x and dy, write dx) and what the two-pass design moves (x and dy
+# read twice)
+BN_BYTES = 10
+BN_DESIGN_BYTES = 16
+
+
+def bn_calls(cell: str) -> int:
+    """The train BatchNorms of one step of `cell`'s model."""
+    return sum(n for _, _, n in BN_CELLS[cell][1])
+
+
+def bn_shape_times(card: str, side: int, batch: int, c: int) -> dict:
+    """One BatchNorm shape in bf16: the kernels' forward and backward
+    against the plain ops' (the same results within the kernel bounds),
+    their device ms, the bounds by the function's bytes and by the
+    design's, `F.batch_norm`'s ms."""
+    gen = torch.Generator(device="cuda").manual_seed(side * c)
+    x = (torch.randn(batch, side, side, c, generator=gen, device="cuda") * 2
+         + 0.5).bfloat16()
+    dy = torch.randn(x.shape, generator=gen, device="cuda").bfloat16()
+    w = torch.rand(c, generator=gen, device="cuda") + 0.5
+    b = torch.randn(c, generator=gen, device="cuda")
+    rm = torch.zeros(c, device="cuda")
+    rv = torch.ones(c, device="cuda")
+
+    def kernels():
+        y, stats, _, _ = bk.bn_train_forward(x, w, b, rm, rv, 0.1, 1e-5)
+        return (y, *bk.bn_train_backward(x, dy, w, stats))
+
+    xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
+
+    def plain():
+        y = layers.batchnorm_train_plain(wr, br, rm, rv, xr)[0]
+        return (y, *torch.autograd.grad(y, (xr, wr, br), dy))
+
+    def library():
+        y = F.batch_norm(xr.permute(0, 3, 1, 2), rm.clone(), rv.clone(), wr,
+                         br, training=True)
+        return torch.autograd.grad(y, (xr, wr, br), dy.permute(0, 3, 1, 2))
+
+    gaps = [agreement(g, e) for g, e in zip(kernels(), plain())]
+    m = batch * side * side
+    row = {"ms": device_ms(kernels, iters=20),
+           "plain_ms": device_ms(plain, iters=5),
+           "library_ms": device_ms(library, iters=20),
+           "bound_ms": BN_BYTES * m * c / PEAK["bytes"] * 1e3,
+           "design_bound_ms": BN_DESIGN_BYTES * m * c / PEAK["bytes"] * 1e3}
+    emit(phase="batchnorm_shape", card=card, rows=m, c=c, dtype="bfloat16",
+         vector_loads=bk._vector_width(x, dy) > 1, **row,
+         share_of_bound=row["bound_ms"] / row["ms"],
+         share_of_design_bound=row["design_bound_ms"] / row["ms"],
+         agreement=dict(zip(("y", "dx", "dw", "db"), gaps)))
+    check(all(gap["ok"] for gap in gaps),
+          f"batchnorm kernels vs plain ops at {m} x {c}: {gaps}")
+    return row
+
+
+def phase_batchnorm(card: str) -> dict:
+    """Phase 45 (see the module docstring). Returns each cell's sums."""
+    out = {}
+    for cell, ((img, batch, heads), calls) in BN_CELLS.items():
+        totals = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                                "design_bound_ms"), 0.0)
+        for r, c, n in calls:
+            row = bn_shape_times(card, img // r, batch, c)
+            for key in totals:
+                totals[key] += n * row[key]
+        cfg = mu.MaskAttnUNetConfig(img_size=img, compute_dtype="bfloat16",
+                                    dropout_rate=0.0, **heads)
+        gen = torch.Generator().manual_seed(0)
+        params, state = mu.init(gen, cfg)
+        params = {k: v.cuda().requires_grad_() for k, v in params.items()}
+        state = {k: v.cuda() for k, v in state.items()}
+        masks = tuple(m.cuda() for m in mu.make_attention_masks(gen, batch,
+                                                               img))
+        x = torch.randn(batch, img, img, 3, generator=gen).cuda()
+        zero_launches()
+        res, _ = mu.apply(params, state, x, cfg=cfg, masks=masks, train=True,
+                          dropout_generator=torch.Generator(device="cuda"))
+        sum(t.float().mean() for t in res if t is not None).backward()
+        torch.cuda.synchronize()
+        counts = bn_launches()
+        del params, state, masks, x, res
+        free_card()
+        emit(phase="batchnorm", card=card, cell=cell, img_size=img,
+             batch=batch, calls=bn_calls(cell), **totals,
+             share_of_bound=totals["bound_ms"] / totals["ms"],
+             share_of_design_bound=totals["design_bound_ms"] / totals["ms"],
+             step_bn_launches=counts)
+        check(counts == want_bn(bn_calls(cell)),
+              f"{cell}: every train BatchNorm of a step on the kernels "
+              f"({counts}, want {bn_calls(cell)} calls)")
+        out[cell] = {**totals, "step_bn_launches": counts}
+    return out
+
+
 def states_equal(a, b) -> bool:
     """Params, BN statistics, AdamW moments and count, masks and step, bit
     for bit."""
@@ -1378,7 +1553,7 @@ def phase_loop(card: str) -> dict:
     recipe = loop_recipe()
     kw = dict(eval_every=1, eval_max_batches=2, ckpt_every=4,
               compute_dtype="bfloat16", verbose=False, device="cuda")
-    want = dict.fromkeys(counted_wrappers(), 0)
+    want = dict.fromkeys(attention_wrappers(), 0)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_loop_")
     try:
         zero_launches()                          # the main path's run
@@ -1387,6 +1562,7 @@ def phase_loop(card: str) -> dict:
         torch.cuda.synchronize()
         first_s = time.monotonic() - t0
         launches = kernel_launches()
+        loop_bn = bn_launches()
         steps = [r["step"] for r in first.history]
         finite = all(np.isfinite([r["loss"], r["miou"], r["val_loss"],
                                   r["val_miou"]]).all()
@@ -1397,6 +1573,9 @@ def phase_loop(card: str) -> dict:
                            "K1": 6 * 4},
               f"loop: 16 steps launch K2 and K4 6 times each, 4 validation "
               f"batches K1 6 times each, nothing else: {launches}")
+        check(loop_bn == want_bn(16 * bn_calls("ade_semantic")),
+              f"loop: 16 steps run their 39 train BatchNorms each on the "
+              f"kernel pair: {loop_bn}")
         check(steps == [8, 16] and finite and first.stop_reason ==
               "completed", f"loop: finite history at steps 8, 16: "
               f"{first.history}")
@@ -1431,12 +1610,14 @@ def phase_loop(card: str) -> dict:
         torch.cuda.synchronize()
         second_s = time.monotonic() - t0
         resume_launches = kernel_launches()
+        resume_bn = bn_launches()
         check([r["step"] for r in second.history] == [24]
               and second.state.step == 24
               and resume_launches == {**want, "K2": 48, "K4": 48,
-                                      "K1": 12},
+                                      "K1": 12}
+              and resume_bn == want_bn(8 * bn_calls("ade_semantic")),
               f"loop: resume runs steps 17-24 only: {second.history}, "
-              f"{resume_launches}")
+              f"{resume_launches}, {resume_bn}")
 
         # serving the workdir: the runner's answers against a direct folded
         # forward of the final state (what 'latest' holds)
@@ -1462,6 +1643,8 @@ def phase_loop(card: str) -> dict:
     with ThreadPoolExecutor(4) as ex:
         answers = list(ex.map(batcher.predict, images))
     serve_launches = kernel_launches()
+    check(bn_launches() == want_bn(0),
+          f"loop: serving runs no BatchNorm kernel: {bn_launches()}")
     plans = mu.precompute_mask_plans(masks)
 
     def logits(params, batch):
@@ -1489,6 +1672,7 @@ def phase_loop(card: str) -> dict:
           f"loop: serving launches K1 6 times a forward: {serve_launches}")
     emit(phase="loop", card=card, batch=BATCH, steps=steps,
          launches=launches, resume_launches=resume_launches,
+         bn_launches=loop_bn, resume_bn_launches=resume_bn,
          serve_launches=serve_launches, seconds_2_epochs=first_s,
          seconds_resumed_epoch=second_s,
          img_per_s=first.images_per_sec,
@@ -1501,7 +1685,7 @@ def phase_loop(card: str) -> dict:
          served_params_equal=same_params, served_logits_equal=same_logits,
          answers_equal_direct=answered, serve_batches=metrics["batches"])
     return {"K1": launches["K1"], "K2": launches["K2"],
-            "K4": launches["K4"], "gaps": gaps, "img_per_s":
+            "K4": launches["K4"], "BN": loop_bn, "gaps": gaps, "img_per_s":
             first.images_per_sec, "save_blocked_s": first.save_blocked_s}
 
 
@@ -1642,7 +1826,7 @@ def run_task_loop(card: str, phase: str, recipe, num_classes: int,
     else; a finite history with `task_keys`. Returns (result, line)."""
     kw = dict(eval_every=1, eval_max_batches=2, ckpt_every=4,
               compute_dtype="bfloat16", verbose=False, device="cuda")
-    want = dict.fromkeys(counted_wrappers(), 0)
+    want = dict.fromkeys(attention_wrappers(), 0)
     workdir = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_")
     try:
         with EvaluatorClock() as clock:
@@ -1766,7 +1950,7 @@ def injected_step(phase: str, recipe, num_classes: int) -> tuple:
     ts, metrics = step(ts, batch, triplets)
     torch.cuda.synchronize()
     step_launches = kernel_launches()
-    check(step_launches == {**dict.fromkeys(counted_wrappers(), 0),
+    check(step_launches == {**dict.fromkeys(attention_wrappers(), 0),
                             "K2": 6, "K4": 6},
           f"{phase} step launches K2 6, K4 6: {step_launches}")
     m = {k: float(v) for k, v in metrics.items()}
@@ -2118,7 +2302,7 @@ def phase_recipes(card: str, roots: dict) -> tuple:
     kw = dict(eval_every=1, compute_dtype="bfloat16", verbose=False,
               save_checkpoints=False, device="cuda",
               data_fraction=RECIPE_FRACTION)
-    zeros = dict.fromkeys(counted_wrappers(), 0)
+    zeros = dict.fromkeys(attention_wrappers(), 0)
     total = dict.fromkeys(("K1", "K2", "K4"), 0)
     pan_state = None
     for name in RECIPE_NAMES:
@@ -2304,7 +2488,7 @@ def phase_predict(card: str, ts, roots: dict, matplotlib: str | None
     equal = sum(int(np.array_equal(m, d)) for m, d in zip(masks, direct))
     agree = float(np.mean([np.mean(m == f) for m, f in zip(masks, fold)]))
     panels = sum(n.endswith("_panel.png") for n in outputs)
-    zeros = dict.fromkeys(counted_wrappers(), 0)
+    zeros = dict.fromkeys(attention_wrappers(), 0)
     check(launches == {**zeros, "K1": 12},
           f"predict: 2 batches launch K1 6 times each: {launches}")
     check(len(written) == PREDICT_IMAGES == equal and len(direct)
@@ -2451,7 +2635,7 @@ def artifact_vs_live(path: str, live, kname: str) -> dict:
     torch.cuda.synchronize()
     launches = kernel_launches()
     want = [live(b) for b in batches]
-    zeros = dict.fromkeys(counted_wrappers(), 0)
+    zeros = dict.fromkeys(attention_wrappers(), 0)
     return {"runner": runner, "meta": meta, "load_s": load_s,
             "launches": launches, "forwards": len(batches),
             "launches_ok": launches == {**zeros, kname: 6 * len(batches)},
@@ -2629,7 +2813,7 @@ def phase_export(card: str, work: str) -> dict:
         safe_proc.kill()
         out, err = safe_proc.communicate()
     safe = last_json(out) or {}
-    zeros = dict.fromkeys(counted_wrappers(), 0)
+    zeros = dict.fromkeys(attention_wrappers(), 0)
     check(safe_proc.returncode == 0 and safe.get("ok") is True
           and safe.get("safe") is True
           and safe.get("launches") == {**zeros, "K3": 6 * safe["forwards"]},
@@ -2685,7 +2869,7 @@ def phase_int8(card: str, exports: dict, calib_dir: str, live_bf16,
     agree = {k: float(np.mean([float((g == w).float().mean())
                                for g, w in zip(v, want)]))
              for k, v in maps.items()}
-    zeros = dict.fromkeys(counted_wrappers(), 0)
+    zeros = dict.fromkeys(attention_wrappers(), 0)
     check(not float_convs, f"int8: no float conv ran: {float_convs[:3]}")
     check(launches == {**zeros, "K1": 6 * 2 * len(batches)},
           f"int8: K1 6 launches a forward: {launches}")
@@ -3185,7 +3369,7 @@ def check_dp_like(phase: str, r0: dict, r1: dict,
     step on its rows, the ranks' losses equal and finite, loss and mIoU
     within TRAIN_LOSS_RTOL, the BN stats within DP_STATE_RTOL; the f32
     update's least cosine, the bf16 rule's worst margin."""
-    want = dict.fromkeys(counted_wrappers(), 0)
+    want = dict.fromkeys(attention_wrappers(), 0)
     for dtype in ("float32", "bfloat16"):
         a, b = r0[dtype], r1[dtype]
         check(all(l == {**want, "K2": 6, "K4": 6}
@@ -3281,7 +3465,7 @@ def phase_dp_nccl(card: str) -> None:
         r = dp_nccl_rank(0)
     finally:
         dist.destroy_process_group()
-    want = dict.fromkeys(counted_wrappers(), 0)
+    want = dict.fromkeys(attention_wrappers(), 0)
     emit(phase="dp_nccl", card=card, **r)
     check(r["backend"] == "nccl" and r["device"] == "cuda:0",
           f"dp_nccl: an NCCL group on cuda:0: {r['backend']} {r['device']}")
@@ -3391,7 +3575,7 @@ def phase_pipeline(card: str, parallel: list) -> dict:
     t0 = time.monotonic()
     mesh = pp.make_pipe_mesh(devices=["cuda:0", "cuda:0"])
     task = train_step.TaskConfig()
-    want = dict.fromkeys(counted_wrappers(), 0)
+    want = dict.fromkeys(attention_wrappers(), 0)
 
     # forward and running stats: pipelined vs sequential, same draws
     cfg, ts, batch = dp_setup("float32")
@@ -3582,7 +3766,7 @@ def phase_dp_serve(card: str) -> dict:
          single_wall_ms=wall_1, single_device_ms=dev_1,
          serve_n_data_2=[proc.returncode, err[-1:]],
          note="both replicas share one card")
-    want_counts = dict.fromkeys(counted_wrappers(), 0)
+    want_counts = dict.fromkeys(attention_wrappers(), 0)
     check(metrics["requests"] == 16 and metrics["errors"] == 0
           and in_a_slot == 16,
           f"dp_serve: 16 requests answered, each the DP forward of its "
@@ -3691,7 +3875,7 @@ def phase_tp(card: str, parallel: list) -> dict:
          note="two model ranks share one card's SMs, each running the "
               "whole step but half the bottleneck: their times show the "
               "path and its gathers through gloo, never a TP speedup")
-    zeros = dict.fromkeys(counted_wrappers(), 0)
+    zeros = dict.fromkeys(attention_wrappers(), 0)
     check(serving["launches"] == {**zeros, "K1": 6 * len(serving["equal"])}
           and serving["agreement"] >= TP_SERVE_AGREE,
           f"tp serving: K1 6 a forward, f32 maps as one device's: "
@@ -3996,7 +4180,7 @@ def res256_forward_vs_plain(card: str) -> dict:
                 finally:
                     fk.flash_fwd_nomax = kernel_fn
             free_card()
-            check(one == {**dict.fromkeys(counted_wrappers(), 0), "K1": 6},
+            check(one == {**dict.fromkeys(attention_wrappers(), 0), "K1": 6},
                   f"res256 {name} {dtype}: one forward launches K1 6 times, "
                   f"no other kernel: {one}")
         truth = logits["float32", "plain"].argmax(-1)
@@ -4397,7 +4581,7 @@ def phase_breakdowns(card: str, serve_times: dict, step_times: dict
              seconds=time.monotonic() - t0)
         check(restored, f"breakdowns {tool}: every patched function is the "
               f"original again")
-        check(launches == {**dict.fromkeys(counted_wrappers(), 0), **want},
+        check(launches == {**dict.fromkeys(attention_wrappers(), 0), **want},
               f"breakdowns {tool}: the flash kernels as the modes leave "
               f"them: {launches}, want {want}")
         check(all(isinstance(r["device_ms"], float) for r in res.values()),
@@ -4525,7 +4709,7 @@ def run_tool(phase: str, card: str, name: str, fn, want: dict) -> dict:
     launches = tool_launches[name] = kernel_launches()
     emit(phase=phase, card=card, tool=name, lines=lines, results=res,
          launches=launches, seconds=time.monotonic() - t0)
-    check(launches == {**dict.fromkeys(counted_wrappers(), 0), **want},
+    check(launches == {**dict.fromkeys(attention_wrappers(), 0), **want},
           f"{phase} {name}: launches {launches}, want {want}")
     check(finite_ms(res), f"{phase} {name}: every time finite")
     return res
@@ -4780,7 +4964,9 @@ def main() -> int:
     train = phase_train(card)
     train_totals = phase_train_time(card, train)
     train_launches = train["launches"]
+    train_bn = train["bn_launches"]
     del train
+    batchnorm = phase_batchnorm(card)
     loop = phase_loop(card)
     phase_loop_time(card, loop)
     panoptic = phase_panoptic_loop(card, loop)
@@ -4944,6 +5130,19 @@ def main() -> int:
                      tools["K7"]["launches"], tools["K7"]["max_abs_err"],
                      tools["K7"], bodies_bf16={"64": online_bodies["64"]}),
     ]
+    # no TPU kernel: JAX's train BatchNorm is XLA's fusion of plain ops;
+    # times are each cell's BatchNorms of a step (forward and backward);
+    # launches as counted in one step of the train phase, in the loop's 16
+    # steps and in one step of each cell's model (phase 45)
+    kernels.append({
+        "name": "batchnorm_train", "route": "cuda",
+        "source": "maskunet_tpu_torch/csrc/batchnorm_train.cu",
+        "replaces": "none (maskunet_tpu/core/layers.py batchnorm, "
+                    "train=True: XLA's fusion)",
+        "launches": train_bn, "launches_loop": loop["BN"],
+        **{f"{cell}_{key}": val for cell, t in batchnorm.items()
+           for key, val in t.items()},
+        "bound_by": "bytes"})
     emit(phase="done", seconds=time.monotonic() - t0, failures=failures)
     if failures:
         print(f"chip_smoke: {len(failures)} failure(s): {failures}",

@@ -13,7 +13,8 @@ float is first rounded to bf16 (weak typing): `weak_scalar` reproduces that.
 
 Train-mode BatchNorm follows JAX's arithmetic (f32, var = E[x^2] - mean^2)
 in plain ops rather than `F.batch_norm`, whose variance is computed another
-way.
+way; on the card it runs that arithmetic as a hand-written kernel pair
+(`ops/batchnorm_kernels.py`).
 
 `conv2d_int8` is JAX's int8 serving conv (the `kernel_q` branch of its
 `conv2d`): per-sample dynamic (or static, calibrated) activation scales,
@@ -173,7 +174,39 @@ def batchnorm_train(weight: torch.Tensor, bias: torch.Tensor,
     GSPMD gives JAX's DP): the per-channel Σx and Σx², summed in f32, and
     the count go through one all-reduce, gradients flowing through it, so
     the statistics are the global batch's on every rank (the count rides
-    in f32: exact up to 2^24 pixels a call)."""
+    in f32: exact up to 2^24 pixels a call).
+
+    A CUDA tensor without `group` runs the hand-written kernel pair
+    (`ops/batchnorm_kernels.BatchNormTrain`: two passes forward, two
+    backward, the same arithmetic; bf16 or f32 x and f32 parameters, or it
+    raises), counted in `batchnorm_train.fused`. Every other call runs the
+    plain ops (`batchnorm_train_plain`); those on the card, the
+    cross-replica ones, are counted in `batchnorm_train.plain_cuda`.
+    """
+    if x.device.type == "cuda":
+        if group is None:
+            from maskunet_tpu_torch.ops import batchnorm_kernels as bk
+            out = bk.BatchNormTrain.apply(x, weight, bias, running_mean,
+                                          running_var, momentum, eps)
+            batchnorm_train.fused += 1
+            return out
+        batchnorm_train.plain_cuda += 1
+    return batchnorm_train_plain(weight, bias, running_mean, running_var, x,
+                                 momentum=momentum, eps=eps, group=group)
+
+
+batchnorm_train.fused = 0
+batchnorm_train.plain_cuda = 0
+
+
+def batchnorm_train_plain(weight: torch.Tensor, bias: torch.Tensor,
+                          running_mean: torch.Tensor,
+                          running_var: torch.Tensor, x: torch.Tensor, *,
+                          momentum: float = 0.1, eps: float = 1e-5,
+                          group=None
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`batchnorm_train` in plain ops, on any device: what every CPU call
+    and every cross-replica call runs."""
     xf = x.float()
     dims = tuple(range(x.dim() - 1))
     n = x.numel() // x.shape[-1]

@@ -14,8 +14,10 @@ and their plain PyTorch versions.
 
 Their CUDA sources, `csrc/flash_fwd_nomax.cu` (K1 and K2, and the A/B
 tools' K6 with its repack kernel), `csrc/flash_fwd_online.cu` (K3, and
-the tools' K5 and K7) and `csrc/flash_bwd.cu` (K4), are compiled for
-sm_90a with nvcc at the first launch of any of them, all at once, into
+the tools' K5 and K7) and `csrc/flash_bwd.cu` (K4), with
+`csrc/batchnorm_train.cu` (the train-mode BatchNorm pair of
+`ops/batchnorm_kernels.py`), are compiled for sm_90a with nvcc at the
+first launch of any of them, all at once, into
 `maskunet_tpu_torch/_build/` (shared libraries with plain C entry points,
 loaded with ctypes), and launch on the current CUDA stream.
 The wrappers of K5-K7 sit in `maskunet_tpu_torch/tools/`.
@@ -56,7 +58,8 @@ KERNEL_CHANNELS = (64, 128, 256)
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
-           for name in ("flash_fwd_nomax", "flash_fwd_online", "flash_bwd")}
+           for name in ("flash_fwd_nomax", "flash_fwd_online", "flash_bwd",
+                        "batchnorm_train")}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

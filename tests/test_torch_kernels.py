@@ -12,7 +12,10 @@ without its clamp, and the A/B tools' K5 `softmax_ab.old_flash_fwd`, K6
 `softmax_ab.nomax65_fwd` with its repack kernel `softmax_ab.repack65`,
 and K7 `bf16_softmax_experiment.flash_fwd_bf16`), counted in
 `<wrapper>.launches`. K1-K7 have edge cases where their TMA boxes meet
-ragged lengths.
+ragged lengths. The train-mode BatchNorm pair (`batchnorm_kernels`,
+through `core/layers.batchnorm_train`) is held to the plain ops
+(`batchnorm_train_plain`) at every BatchNorm shape of the benchmark's
+cells.
 Kernel vs plain version, both bounds scaled to the plain output (as
 chip_smoke.py holds them): max|diff| <= TOL max|plain| and rms(diff) <=
 RMS_TOL rms(plain); f32 2e-5 / 1e-5 (summation order, the hardware exp2,
@@ -33,6 +36,8 @@ import numpy as np
 import pytest
 import torch
 
+from maskunet_tpu_torch.core import layers as tl
+from maskunet_tpu_torch.ops import batchnorm_kernels as tbk
 from maskunet_tpu_torch.ops import flash_attention as tfa
 from maskunet_tpu_torch.ops import flash_kernels as tk
 from maskunet_tpu_torch.tools import bf16_softmax_experiment as tbf
@@ -413,7 +418,7 @@ def test_k6_runs_the_forward_wgmma_body_after_its_repack():
     kernel, both entries of that library: no source of its own."""
     src = tk.SOURCES["flash_fwd_nomax"].read_text()
     assert set(tk.SOURCES) == {"flash_fwd_nomax", "flash_fwd_online",
-                               "flash_bwd"}
+                               "flash_bwd", "batchnorm_train"}
     assert all(p.exists() for p in tk.SOURCES.values())
     assert not (tk.SOURCES["flash_fwd_nomax"].parent
                 / "flash_fwd_nomax65.cu").exists()
@@ -540,6 +545,177 @@ def test_forward_wrappers_launch_in_batch_chunks(which, monkeypatch):
     _chunk_check(calls, name, inputs, n_ptrs, 65536, 65528)
     assert [c[1][n_ptrs] for c in calls] == [65528, 8]
     assert wrapper.launches == before + 2
+
+
+# ---------------------------------------------------------------------------
+# Train-mode BatchNorm (`batchnorm_kernels`) on the CPU: the Function's
+# plain versions, the dispatch, the kernels' names
+# ---------------------------------------------------------------------------
+
+# (divisor of the side, channels) of every train BatchNorm of the
+# benchmark's two cells, whose batches hold 524,288 pixels each (256^2 x 8
+# and 128^2 x 32): ADE's 39 and city's 41 calls take these 14 shapes
+BN_SHAPES = ((1, 16), (1, 19), (1, 32), (1, 64), (1, 128), (1, 150),
+             (2, 64), (2, 128), (2, 256), (4, 128), (4, 256), (4, 512),
+             (8, 256), (8, 512))
+BN_CALLS = {"ade_semantic": 39, "city_instance": 41}
+
+
+def _bn_inputs(shape, dtype, device, seed=0, batch=2):
+    """x [batch, H, W, C] (mean 0.5, std 2), weight, bias, running mean and
+    var, and a gradient for y."""
+    g = torch.Generator().manual_seed(seed)
+    h, w, c = shape
+    x = torch.randn(batch, h, w, c, generator=g) * 2 + 0.5
+    params = (torch.rand(c, generator=g) + 0.5, torch.randn(c, generator=g),
+              torch.randn(c, generator=g), torch.rand(c, generator=g) + 0.5)
+    dy = torch.randn(batch, h, w, c, generator=g)
+    f32 = torch.float64 if dtype == torch.float64 else torch.float32
+    return (x.to(device, dtype), *(t.to(device, f32) for t in params),
+            dy.to(device, dtype))
+
+
+def _bn_grads(fn, x, w, b, rm, rv, dy):
+    """(y, new mean, new var, dx, dw, db) of the call `fn(w, b, rm, rv,
+    x)`."""
+    xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
+    y, m, v = fn(wr, br, rm, rv, xr)
+    dx, dw, db = torch.autograd.grad(y, (xr, wr, br), dy)
+    return y.detach(), m, v, dx, dw, db
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_batchnorm_backward_written_out_equals_autograd(dtype):
+    """The Function's backward as the kernels compute it (dx from sum(dy)
+    and sum(dy (x - mean)), in plain PyTorch) equals autograd of the
+    forward with var = E[x^2] - mean^2: in f64 against autograd of that
+    arithmetic (and gradcheck's numerical derivative), in f32 against
+    autograd of `batchnorm_train` itself."""
+    x, w, b, rm, rv, dy = _bn_inputs((3, 5, 7), dtype, "cpu", seed=1)
+    got = _bn_grads(lambda *a: tbk.BatchNormTrain.apply(
+        a[4], a[0], a[1], a[2], a[3], 0.1, 1e-5), x, w, b, rm, rv, dy)
+    if dtype == torch.float64:
+        want = _bn_grads(lambda w_, b_, rm_, rv_, x_: (lambda r: (
+            r[0], r[2], r[3]))(tbk.forward_reference(
+                x_, w_, b_, rm_, rv_, 0.1, 1e-5)), x, w, b, rm, rv, dy)
+        for a, e in zip(got, want):
+            torch.testing.assert_close(a, e, rtol=1e-12, atol=1e-12)
+        assert torch.autograd.gradcheck(
+            lambda x_, w_, b_: tbk.BatchNormTrain.apply(
+                x_, w_, b_, rm, rv, 0.1, 1e-5)[0],
+            tuple(t.clone().requires_grad_() for t in (x, w, b)))
+    else:
+        want = _bn_grads(tl.batchnorm_train, x, w, b, rm, rv, dy)
+        for a, e in zip(got, want):
+            _agrees(a, e)
+
+
+def test_batchnorm_plain_version_keeps_jax_variance():
+    """The kernels' plain forward equals `batchnorm_train`'s plain ops bit
+    for bit in f32 and bf16, and its variance is E[x^2] - mean^2 (which
+    differs from the centred form where the mean is large)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w, b, rm, rv, _ = _bn_inputs((4, 4, 6), dtype, "cpu", seed=2)
+        x = x + 300
+        y, stats, m, v = tbk.forward_reference(x, w, b, rm, rv, 0.1, 1e-5)
+        want = tl.batchnorm_train_plain(w, b, rm, rv, x)
+        assert all(torch.equal(g, e) for g, e in zip((y, m, v), want))
+        xf = x.float()
+        dims = (0, 1, 2)
+        jax_var = xf.square().mean(dims) - xf.mean(dims).square()
+        assert torch.equal(stats[1], torch.rsqrt(jax_var + 1e-5))
+        assert not torch.equal(jax_var, xf.var(dims, unbiased=False))
+
+
+def test_batchnorm_dispatch_sends_cpu_calls_to_plain_ops_and_checks():
+    """A CPU tensor runs the plain ops and counts nothing. The Function
+    makes a strided x and parameters contiguous (the same results as the
+    plain ops); the kernels' `check` raises on other dtypes, a missing
+    channel axis, an empty x and parameters it cannot read."""
+    x, w, b, rm, rv, dy = _bn_inputs((4, 4, 8), torch.float32, "cpu")
+    counts = (tl.batchnorm_train.fused, tl.batchnorm_train.plain_cuda,
+              tbk.bn_train_forward.launches)
+    got = tl.batchnorm_train(w, b, rm, rv, x)
+    want = tl.batchnorm_train_plain(w, b, rm, rv, x)
+    assert all(torch.equal(g, e) for g, e in zip(got, want))
+    assert (tl.batchnorm_train.fused, tl.batchnorm_train.plain_cuda,
+            tbk.bn_train_forward.launches) == counts
+    xt, wt = x.transpose(1, 2), torch.stack([w, w], 1)[:, 0]
+    assert not xt.is_contiguous() and not wt.is_contiguous()
+    got = _bn_grads(lambda *a: tbk.BatchNormTrain.apply(
+        a[4], a[0], a[1], a[2], a[3], 0.1, 1e-5), xt, wt, b, rm, rv, dy)
+    want = _bn_grads(tl.batchnorm_train_plain, xt, w, b, rm, rv, dy)
+    for a, e in zip(got, want):
+        _agrees(a, e)
+    _agrees(tbk.BatchNormTrain.apply(xt, wt, b, rm, rv, 0.1, 1e-5)[0],
+            want[0])
+    tbk.check(x, w, b, rm, rv)
+    tbk.check(x.bfloat16(), w, b, rm, rv)
+    for bad in ((xt, w), (x.half(), w), (x.double(), w),
+                (x.reshape(-1), w[:1]), (x[:0], w), (x, w.bfloat16()),
+                (x, rm[:4]), (x, torch.ones(16)[::2]),
+                (x, w.to("meta"))):
+        with pytest.raises(ValueError, match="train BatchNorm kernels"):
+            tbk.check(*bad)
+
+
+def test_batchnorm_wrappers_refuse_other_devices():
+    """Off the CPU the wrappers launch or raise: never the plain version."""
+    x = torch.empty(2, 4, 8, device="meta")
+    w = torch.empty(8, device="meta")
+    with pytest.raises(ValueError, match="no flash kernel"):
+        tbk.bn_train_forward(x, w, w, w, w, 0.1, 1e-5)
+    with pytest.raises(ValueError, match="no flash kernel"):
+        tbk.bn_train_backward(x, x, w, torch.empty(3, 8, device="meta"))
+
+
+def _bn_kernel_names() -> list:
+    """The kernels of csrc/batchnorm_train.cu by the names their source
+    gives them."""
+    src = tk.SOURCES["batchnorm_train"].read_text()
+    return re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s*\n"
+                      r"(\w+)\(", src)
+
+
+def test_batchnorm_kernel_names_classify_as_pointwise_work():
+    """Each kernel name, bare and as the profiler spells a template
+    instantiation, is a reduction or an elementwise pass to the
+    benchmark's classifier: never attention (K1/K2, K4) or conv_matmul."""
+    from perfbench.harness import trace
+    names = _bn_kernel_names()
+    assert sorted(names) == ["bn_grad_finalize_reduce_kernel",
+                             "bn_grad_input_elementwise",
+                             "bn_grad_reduce_kernel",
+                             "bn_normalise_elementwise",
+                             "bn_stats_finalize_reduce_kernel",
+                             "bn_stats_reduce_kernel"]
+    for name in names:
+        want = "reduction" if "reduce_kernel" in name else "elementwise"
+        for spelled in (name, f"void {name}<__nv_bfloat16, 8>(__nv_bfloat16 "
+                        f"const*, float*, long long, int, int)",
+                        f"void (anonymous namespace)::{name}<float, 1>("
+                        f"float const*, float const*, float*, long long, "
+                        f"int, int)"):
+            assert trace.kernel_kind(spelled) == want, spelled
+
+
+def test_batchnorm_geometry_covers_every_channel_group():
+    """The passes' grid: blocks of at most 256 threads that tile the
+    channel groups, at least MIN_ROWS rows a thread where the rows allow,
+    and no more blocks than ~BLOCK_THREADS threads an SM hold."""
+    for r, c in BN_SHAPES + ((1, 1), (1, 1000), (1, 4096)):
+        m = 524288 // r ** 2
+        for vec in (1, 4, 8):
+            if c % vec:
+                continue
+            nb, gt, rows = tbk.geometry(m, c, vec, 132)
+            groups = c // vec
+            gy = -(-groups // gt)
+            assert gt * rows <= tbk.THREADS and gt * gy >= groups > gt * (
+                gy - 1)
+            assert (nb - 1) * rows * tbk.MIN_ROWS < m
+            assert nb * gy * gt * rows <= 132 * max(
+                tbk.BLOCK_THREADS, gt * rows)
 
 
 @pytest.fixture
@@ -978,3 +1154,125 @@ def test_k6_at_ragged_shapes_on_card(cuda, lk):
     torch.cuda.synchronize()
     assert torch.equal(got[0].view(torch.int16), want[0].view(torch.int16))
     assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_batchnorm_kernels_match_plain_ops_on_card(cuda, shape):
+    """`batchnorm_train` on the kernel pair against its plain ops at each
+    BatchNorm shape of the two benchmark cells (524,288 pixels over the
+    side divisor squared), bf16 and f32: y, the new running mean and var,
+    dx, dw and db within the module's bounds; a second call the same
+    bits; `fused` counts both calls and `plain_cuda` none."""
+    r, c = shape
+    side = 256 // r
+    for dtype in (torch.bfloat16, torch.float32):
+        inputs = _bn_inputs((side, side, c), dtype, cuda, seed=r * c,
+                            batch=8)
+        counts = (tl.batchnorm_train.fused, tl.batchnorm_train.plain_cuda)
+        launches = (tbk.bn_train_forward.launches,
+                    tbk.bn_train_backward.launches)
+        got = _bn_grads(tl.batchnorm_train, *inputs)
+        again = _bn_grads(tl.batchnorm_train, *inputs)
+        want = _bn_grads(tl.batchnorm_train_plain, *inputs)
+        torch.cuda.synchronize()
+        assert (tl.batchnorm_train.fused, tl.batchnorm_train.plain_cuda) \
+            == (counts[0] + 2, counts[1])
+        assert (tbk.bn_train_forward.launches,
+                tbk.bn_train_backward.launches) == (launches[0] + 6,
+                                                    launches[1] + 6)
+        for g, e in zip(got, want):
+            assert g.dtype == e.dtype and g.shape == e.shape
+            _agrees(g, e)
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_batchnorm_kernels_take_unaligned_and_strided_x_on_card(cuda):
+    """A contiguous x off a 16-byte boundary runs the kernels' scalar
+    path, a non-contiguous x the kernels on a contiguous copy, both within
+    the bounds of the plain ops; an f16 x raises; no call runs the plain
+    ops (`plain_cuda` counts only cross-replica calls)."""
+    x, w, b, rm, rv, dy = _bn_inputs((16, 16, 64), torch.bfloat16, cuda,
+                                     seed=3)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    counts = (tl.batchnorm_train.fused, tl.batchnorm_train.plain_cuda)
+    got = _bn_grads(tl.batchnorm_train, shifted, w, b, rm, rv, dy)
+    want = _bn_grads(tl.batchnorm_train_plain, x, w, b, rm, rv, dy)
+    torch.cuda.synchronize()
+    for g, e in zip(got, want):
+        _agrees(g, e)
+    assert (tl.batchnorm_train.fused, tl.batchnorm_train.plain_cuda) == (
+        counts[0] + 1, counts[1])
+    xt, dyt = x.transpose(1, 2), dy.transpose(1, 2)
+    got = _bn_grads(tl.batchnorm_train, xt, w, b, rm, rv, dyt)
+    want = _bn_grads(tl.batchnorm_train_plain, xt, w, b, rm, rv, dyt)
+    torch.cuda.synchronize()
+    for g, e in zip(got, want):
+        assert g.shape == e.shape
+        _agrees(g, e)
+    with pytest.raises(ValueError, match="train BatchNorm kernels"):
+        tl.batchnorm_train(w, b, rm, rv, x.half())
+    assert (tl.batchnorm_train.fused, tl.batchnorm_train.plain_cuda) == (
+        counts[0] + 2, counts[1])
+
+
+@pytest.mark.cuda
+def test_batchnorm_kernel_names_in_the_trace_on_card(cuda):
+    """The profiler's names of one fused forward and backward: six
+    kernels of the source, each a reduction or an elementwise pass to the
+    benchmark's classifier."""
+    from perfbench.harness import trace
+    inputs = _bn_inputs((32, 32, 64), torch.bfloat16, cuda, seed=4)
+    _bn_grads(tl.batchnorm_train, *inputs)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _bn_grads(tl.batchnorm_train, *inputs)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "bn_" in e.name]
+    assert len(names) == 6, names
+    assert sorted(n for n in _bn_kernel_names()
+                  if any(n in e for e in names)) == sorted(_bn_kernel_names())
+    assert {trace.kernel_kind(n) for n in names} == {"reduction",
+                                                     "elementwise"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", sorted(BN_CALLS))
+def test_batchnorm_kernels_take_every_train_batchnorm_on_card(cuda, cell):
+    """One train-mode forward and backward of each benchmark cell's model
+    (at 64 px, batch 2, bf16) runs every BatchNorm on the kernel pair:
+    `fused` counts the cell's 39 or 41 calls, `plain_cuda` none, and the
+    wrappers three launches a call each way."""
+    from maskunet_tpu_torch.models import maskattn_unet as mu
+    heads = {"ade_semantic": {"c_out": 150},
+             "city_instance": {"c_out": 19, "embed_dim": 16,
+                               "with_boundary_head": True}}[cell]
+    cfg = mu.MaskAttnUNetConfig(img_size=64, compute_dtype="bfloat16",
+                                dropout_rate=0.0, **heads)
+    g = torch.Generator().manual_seed(5)
+    params, state = mu.init(g, cfg)
+    params = {k: v.to(cuda).requires_grad_() for k, v in params.items()}
+    state = {k: v.to(cuda) for k, v in state.items()}
+    masks = tuple(m.to(cuda) for m in mu.make_attention_masks(g, 2, 64))
+    x = torch.randn(2, 64, 64, 3, generator=g).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    counts = (tl.batchnorm_train.fused, tl.batchnorm_train.plain_cuda,
+              tbk.bn_train_forward.launches, tbk.bn_train_backward.launches)
+    out, new_state = mu.apply(params, state, x, cfg=cfg, masks=masks,
+                              train=True, dropout_generator=g)
+    sum(t.float().sum() for t in out if t is not None).backward()
+    torch.cuda.synchronize()
+    n = BN_CALLS[cell]
+    assert (tl.batchnorm_train.fused - counts[0],
+            tl.batchnorm_train.plain_cuda - counts[1],
+            tbk.bn_train_forward.launches - counts[2],
+            tbk.bn_train_backward.launches - counts[3]) == (n, 0, 3 * n,
+                                                            3 * n)
+    assert len(new_state) == 2 * n
