@@ -1,5 +1,9 @@
 """The numbers that decide `correct`, against the plain reference.
 
+The arithmetic here is the same for every model: the reference's readings
+come from the model's module (`models/<module>.py`, `Built.reference`),
+which runs its own plain reference (`reference/`).
+
 Training (the first three steps of the window's own step and feed):
 
 - `loss_gap`: the largest |program - reference| / |reference| of the
@@ -26,9 +30,6 @@ import statistics
 
 import torch
 
-from perfbench.harness import weights
-from perfbench.reference import train as ref_train
-
 MOVED = 1e-3
 
 
@@ -54,29 +55,23 @@ def _worst(gaps: dict) -> tuple[float, str]:
     return gaps[k], k
 
 
-def train_numbers(cfg: dict, params0: dict, masks, batches, seed: int,
-                  device, losses, grad_norms, change_norms, *,
-                  quant: str | None = None, half_batch: bool = False
-                  ) -> dict:
-    """The three numbers of the program's readings against the reference
-    (`quant="fp8"`: the control's reference stands in for the program's
+def train_numbers(reference, params0: dict, batches, device, losses,
+                  grad_norms, change_norms, *, quant: str | None = None,
+                  half_batch: bool = False) -> dict:
+    """The numbers of the program's readings against the reference's
+    (`reference`: `Built.reference`; `quant="fp8"` or `half_batch`: the
+    control's or the fault's reference stands in for the program's
     readings instead)."""
     _exact_f32()
-    gen = torch.Generator(device=device).manual_seed(
-        weights.dropout_seed(seed))
     dev_batches = [_device_batch(b, device) for b in batches]
-    r_losses, r_first, r_params = ref_train.train_steps(
-        params0, dev_batches, masks, gen, cfg)
+    r_losses, r_first, r_params = reference(dev_batches)
     r_grad = {k: float(v.norm()) for k, v in r_first.items()}
     r_change = {k: float((r_params[k] - params0[k]).norm())
                 for k in params0}
     del r_first, r_params
     if quant is not None or half_batch:
-        gen = torch.Generator(device=device).manual_seed(
-            weights.dropout_seed(seed))
-        losses, first, params = ref_train.train_steps(
-            params0, dev_batches, masks, gen, cfg, quant=quant,
-            half_batch=half_batch)
+        losses, first, params = reference(dev_batches, quant=quant,
+                                          half_batch=half_batch)
         grad_norms = {k: float(v.norm()) for k, v in first.items()}
         change_norms = {k: float((params[k] - params0[k]).norm())
                         for k in params0}

@@ -12,9 +12,17 @@ to read). A mix's `kind` names the loop that runs it, the module
 reports are the entries of `BENCHMARK.json` that list the cell, or that
 list none and move an end-to-end metric the cell reports.
 
-A configuration's keys that the reference cannot vary (`FIXED`) must
-hold the reference's values: a file that states another width or layout
-is refused, not run at the old one.
+A configuration names its model under `model`, and the model's module
+is `models/<module>.py` (`model_module`: `MaskAttn-UNet` ->
+`maskattn_unet`; see `perfbench/models/`). A configuration whose model has
+no module is refused. The keys that the model's reference cannot vary
+(its module's `FIXED`) must hold the reference's values: a file that
+states another width or layout is refused, not run at the old one.
+
+A new cell of a new model is new files: its module under `models/`, its
+reference under `reference/`, `configs/<name>.json`, `workloads/<cell>.json`
+and, where its traffic is new, `traffic/<name>.json`, with entries in
+`BENCHMARK.json`; nothing here changes.
 """
 
 from __future__ import annotations
@@ -22,15 +30,14 @@ from __future__ import annotations
 import importlib
 import importlib.util
 import json
+import pkgutil
+import re
 from pathlib import Path
 
-from perfbench.reference.model import ATTN_CHANNELS
+import perfbench.models
 
 HERE = Path(__file__).resolve().parent.parent
 BENCHMARK = HERE.parent / "BENCHMARK.json"
-FIXED = {"model": "MaskAttn-UNet", "c_in": 3,
-         "attention_channels": list(ATTN_CHANNELS),
-         "attn_output_layout": "transpose"}
 
 
 def _json(path: Path) -> dict:
@@ -49,15 +56,44 @@ def load_cell(name: str) -> dict:
     traffic = _json(HERE / "traffic" / f"{w['traffic']}.json")
     params = {**traffic["params"], **w["params"]}
     config = _json(HERE / "configs" / f"{w['config']}.json")
-    wrong = {k: config.get(k) for k, v in FIXED.items() if config.get(k) != v}
+    fixed = model(config).FIXED
+    wrong = {k: config.get(k) for k, v in fixed.items() if config.get(k) != v}
     if wrong:
-        want = {k: FIXED[k] for k in wrong}
+        want = {k: fixed[k] for k in wrong}
         raise ValueError(f"{w['config']}: the reference builds only {want}, "
                          f"not {wrong}")
     return {"name": name, "config_name": w["config"], "config": config,
             "traffic": w["traffic"], "kind": traffic["kind"],
             "params": params, "limits": w["limits"],
             "chips": w.get("chips", 1)}
+
+
+def model_module(name: str) -> str:
+    """The module of `models/` that a model's name gives: lowercased, each
+    run of characters other than letters and digits made `_`."""
+    return re.sub(r"[^a-z0-9]+", "_", name.lower())
+
+
+def _modules() -> list[str]:
+    return sorted({m.name for m in pkgutil.iter_modules(
+        perfbench.models.__path__) if not m.name.startswith("_")})
+
+
+def models() -> list[str]:
+    """The models that have a module (each module's `FIXED["model"]`)."""
+    return sorted(importlib.import_module(
+        f"perfbench.models.{m}").FIXED["model"] for m in _modules())
+
+
+def model(config: dict):
+    """The module `models/<module>.py` of the configuration's `model`."""
+    name = config.get("model")
+    module = model_module(name) if isinstance(name, str) else ""
+    if module not in _modules():
+        raise ValueError(f"{config.get('name')}: no module "
+                         f"models/{module}.py for model {name!r}; the "
+                         f"models with one: {models()}")
+    return importlib.import_module(f"perfbench.models.{module}")
 
 
 def mix(cell: dict):

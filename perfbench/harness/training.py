@@ -1,39 +1,74 @@
-"""The `train_loop` mix: the port's training step driven as its loop drives
-it, and the comparison of its first three steps with the reference.
+"""The `training` loop: a model's training step driven as the port's loop
+drives it, and the comparison of its first three steps with the plain
+reference.
 
-Set-up builds one TrainState from the seeded weights, masks and
-dropout generator, and one step (`train.step.make_train_step`), and
-feeds it from a pool of distinct seeded batches cycled through the port's
-`data.pipeline.Prefetcher` (pinned host batches, copied on a stream of
-its own). The first three steps are the comparison's: their losses, the
-first gradient as AdamW holds it after step 1 (exp_avg / (1 - beta1)),
-and every parameter's change after step 3 are kept. A few more steps warm
-up, then the window runs steps with each step's metrics fetched a step
-late and no synchronisation, as the loop does. The rate counts the images
-of every step dispatched in the window, over the time until the card has
-finished them. The card's clocks and power are sampled through the
-window (`harness/card.py`) and printed.
+Everything of the model comes from its module, `models/<module>.py`
+(`spec.model`), as a `Built`: the port's train state and step, made from
+seeded weights at set-up, the seeded initial parameters, the launch
+counters, the FLOPs a call and the attention bounds, and the reference's
+checked steps. This loop feeds the step from a pool of distinct seeded
+batches (`harness/data.py`, the keys the step takes) cycled through the
+port's `data.pipeline.Prefetcher` (pinned host batches, copied on a stream
+of its own). The first three steps are the comparison's: their losses,
+the first gradient as AdamW holds it after step 1 (exp_avg / (1 -
+beta1)), and every parameter's change after step 3 are kept. A few more
+steps warm up, then the window runs steps with each step's metrics
+fetched a step late and no synchronisation, as the loop does. The rate
+counts the images of every step dispatched in the window, over the time
+until the card has finished them. The card's clocks and power are sampled
+through the window (`harness/card.py`) and printed.
 
 `CONTROLS` are the readings that the comparison's limits are set against
 (`tools/readings.py`; the benchmark's runs never make them): the
 reference computed in fp8 in the program's place, and the fault of half
-the batch left out of the loss.
+the batch left out of the loss. A model's reference takes both.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import math
 import time
+from typing import Callable
 
 import torch
 
-from perfbench.harness import card, data, flops, weights
+from perfbench.harness import card, data, spec
 
 WARM_STEPS = 2       # after the three checked ones
 CHECKED_STEPS = 3
 CONTROLS = {"control_fp8": {"quant": "fp8"},
             "fault_half_batch": {"half_batch": True}}
+
+
+@dataclasses.dataclass
+class Built:
+    """What a model's module builds for this loop.
+
+    `state`: the port's train state, with `params` (name -> leaf) and
+    `optimizer` (a torch optimizer that keeps Adam's `exp_avg`); `step(state,
+    batch) -> (state, metrics)`, `metrics["loss"]` a tensor; `params0`: the
+    seeded initial parameters, under the reference's names; `classes`: the
+    labels the pool draws from; `pool_keys`: the pool's keys that the step
+    takes; `flops_per_call`: the model's FLOPs of one step; `bounds`: the
+    attention kernels' least seconds a step (`{'fwd', 'bwd'}`, or `{}`);
+    `counters`: name -> an object whose `launches` counts a kernel's
+    launches; `reference(batches, *, quant=None, half_batch=False)`: the
+    plain reference's steps from `params0` over these device batches
+    (image f32 in [0, 1]), returning (losses, first gradients, the
+    parameters after the last step).
+    """
+
+    state: object
+    step: Callable
+    params0: dict
+    classes: int
+    pool_keys: tuple
+    flops_per_call: float
+    bounds: dict
+    counters: dict
+    reference: Callable
 
 
 def _cycle(pool: dict, batch: int):
@@ -50,48 +85,22 @@ def _leaf_norms(tensors: dict) -> dict:
 
 def run(cell: dict, seed: int, seconds: float, trace: bool, device,
         log) -> dict:
-    from maskunet_tpu_torch.core import state as state_lib
     from maskunet_tpu_torch.data import pipeline
-    from maskunet_tpu_torch.models import maskattn_unet as mu
-    from maskunet_tpu_torch.ops import flash_kernels as fk
     from maskunet_tpu_torch.train import loop as loop_lib
-    from maskunet_tpu_torch.train import step as step_lib
 
-    cfg_file, p = cell["config"], cell["params"]
+    p = cell["params"]
     img, batch = p["img_size"], p["batch"]
-    loss = cfg_file["loss"]
-    cfg = mu.MaskAttnUNetConfig(
-        c_in=cfg_file["c_in"], c_out=cfg_file["c_out"], img_size=img,
-        embed_dim=cfg_file["embed_dim"],
-        with_boundary_head=cfg_file["with_boundary_head"],
-        dropout_rate=cfg_file["dropout_rate"],
-        attn_impl=cfg_file["attn_impl"],
-        compute_dtype=cfg_file["compute_dtype"],
-        attn_output_layout=cfg_file["attn_output_layout"])
-    task = step_lib.TaskConfig(
-        ce_weight=loss["ce_weight"], triplet_weight=loss["triplet_weight"],
-        triplet_features=("logits" if loss["triplet_features"] == "semantic"
-                          else loss["triplet_features"]),
-        ignore_index=loss["ignore_index"],
-        triplet_ignore_label=loss["triplet_ignore_label"],
-        triplet_samples=loss["triplet_samples"], mask_policy="cached")
-    params0, mstate = weights.make_weights(cfg_file, img, seed, device)
-    masks = weights.make_masks(img, batch, seed, device,
-                               cfg_file["attention_key_density"])
-    opt = loop_lib.AdamW(cfg_file["optimizer"]["lr"],
-                         cfg_file["optimizer"]["weight_decay"])
-    gen = torch.Generator(device=device).manual_seed(
-        weights.dropout_seed(seed))
-    ts = state_lib.create(gen, params0, mstate, opt, masks=masks)
-    step = step_lib.make_train_step(
-        cfg, task, mask_plans=mu.precompute_mask_plans(ts.masks),
-        device=device)
+    built = spec.model(cell["config"]).training(cell, seed, device)
     pool = data.pool(seed, p["pool_batches"] * batch, img_size=img,
-                     num_classes=cfg_file["c_out"],
+                     num_classes=built.classes,
                      num_objects=p["num_objects"],
                      ignore_border=p["ignore_border"])
-    if not task.triplet_weight:
-        pool.pop("instance")
+    pool = {k: v for k, v in pool.items() if k in built.pool_keys}
+    # the loop alone holds the state, as the port's loop does
+    ts, step, params0 = built.state, built.step, built.params0
+    counters, reference = built.counters, built.reference
+    flops_per_call, bounds = built.flops_per_call, built.bounds
+    del built
     feed = pipeline.Prefetcher(_cycle(pool, batch), device=device,
                                depth=p["prefetch_depth"])
     sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
@@ -115,8 +124,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device,
             ts, m = step(ts, next(feed))
         float(m["loss"])
         sync()
-        counters = (fk.flash_fwd_nomax, fk.flash_fwd_nomax_lse, fk.flash_bwd)
-        before = [c.launches for c in counters]
+        before = {k: c.launches for k, c in counters.items()}
 
         # the window
         clocks = card.Sampler()
@@ -134,8 +142,8 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device,
         sync()
         elapsed = time.perf_counter() - t0
         log(card_in_window=clocks.stop())
-        launches = {name: (c.launches - b) / steps for name, c, b in zip(
-            ("K1", "K2", "K4"), counters, before)}
+        launches = {k: (c.launches - before[k]) / steps
+                    for k, c in counters.items()}
 
         prof = None
         if trace:
@@ -165,8 +173,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device,
         "kind": "training", "images": steps * batch, "seconds": elapsed,
         "window_start": t0, "attempted": steps, "failed": failed,
         "memory_peak_bytes": peak, "trace": prof,
-        "flops_per_call": flops.model_flops(img, cfg_file, masks)["train"],
-        "bounds": flops.attention_bounds(masks),
+        "flops_per_call": flops_per_call, "bounds": bounds,
     }
 
     def check(**fault) -> dict:
@@ -176,8 +183,8 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device,
         first = [{k: v[i * batch:(i + 1) * batch] for k, v in pool.items()}
                  for i in range(CHECKED_STEPS)]
         return compare.train_numbers(
-            cfg_file, params0, masks, first, seed, device, losses,
-            grad_norms, change_norms, **fault)
+            reference, params0, first, device, losses, grad_norms,
+            change_norms, **fault)
 
     result["check"] = check
     return result
